@@ -12,6 +12,9 @@ plain PyTorch version, in one process, with no arguments:
   2. trunk kernel vs its plain version at (8, 192, 192, 64) on the flagship's
      16 blocks, the tiled route's shape: each block on the same input (max
      relative error < 1e-2), and the 16-block chain against float64 sums;
+     then each block at the shapes that the persistent loop and the edges
+     exercise (fewer tiles than SMs, ragged on both axes, more tiles than
+     CTAs times stages), to the same bound;
   3. patch-extraction kernel vs its plain version, bit-exact, at the tiled
      route's 1100 x 1040 x 3 image (128 px patches, 32 px overlap) and at an
      unaligned size;
@@ -23,9 +26,14 @@ plain PyTorch version, in one process, with no arguments:
   5. four requests of two shapes through ``tools.serve.SREngine``, with the
      launch counts set to 0 just before and read just after, checked against
      the one-shot path;
-  6. timings with CUDA events (median of 25 runs after warm-up): each
-     kernel, its plain version and one PyTorch library call for the same
-     function, and the tiled upscale end to end.
+  6. timings with CUDA events: each kernel, its plain version and one
+     PyTorch library call for the same function, as one call from Python
+     between two events (``ms``, median of 25 runs) and also as device time
+     (``device_ms``: many calls captured in one CUDA graph and replayed
+     between two events, so that no host time between launches counts;
+     median of 10 replays); the tiled upscale end to end (median of 20
+     runs); each kernel's registers, spills and shared memory as
+     ``cudaFuncGetAttributes`` reads them.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -55,6 +63,9 @@ FLAGSHIP = ROOT / "results/quality_fastrecipe/models/resnet_gen_srresnet_x4_best
 GALLERY_PNG = ROOT / "data/corpus/gallery/gt_3.png"
 TILED_HW = (1100, 1040)   # an LR image over the 1000 x 1000 tiling threshold
 TRUNK_SHAPE = (8, 192, 192)  # the trunk's input on the tiled route: batch 8 of 128 + 2 * 32 px
+# Shapes for the trunk kernel's persistent loop and edges (tiles of 4 x 64 px,
+# one CTA per SM, 3 stages): 1 tile; ragged rows and columns; 3,315 tiles.
+TRUNK_EDGE_SHAPES = ((1, 1, 1), (2, 13, 37), (3, 200, 260))
 CROP_HW = (96, 128)       # the engine's second request shape
 SEED = 0
 TIMING_RUNS = 25
@@ -103,6 +114,24 @@ def cuda_ms(fn, runs=TIMING_RUNS, warmup=3):
         end.synchronize()
         times.append(begin.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls, replays=10):
+    """Device time of one ``fn()`` in ms: ``calls`` calls captured in one
+    CUDA graph and replayed between two CUDA events (median of
+    ``replays``). A single call of a kernel that runs for tens of
+    microseconds is timed by the host's launch path instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as CUDA graphs need
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, runs=replays, warmup=1) / calls
 
 
 @contextlib.contextmanager
@@ -272,6 +301,23 @@ def main(work):
     if not chain_vs_exact[1] <= TRUNK_CHAIN_FRO_RATIO * plain_vs_exact[1]:
         raise AssertionError(f"trunk kernel chain less accurate than the plain version: "
                              f"{chain_vs_exact} vs {plain_vs_exact}")
+    for shape in TRUNK_EDGE_SHAPES:
+        edge_rel = []
+        with torch.inference_mode():
+            lr = torch.rand(shape + (3,), generator=gen).to(dev)
+            x = model.head_act(model.head(lr.permute(0, 3, 1, 2).to(torch.bfloat16)))
+            x = x.permute(0, 2, 3, 1).contiguous()
+            for blk in range(len(model.blocks)):
+                one = TrunkWeights(*(t[blk:blk + 1] for t in weights))
+                got = residual_trunk(x, one)
+                torch.cuda.synchronize()
+                x = residual_trunk_reference(x, one)
+                edge_rel.append(rel_errors(got, x)[0])
+        log(2, shape=list(shape) + [trunk_in.shape[-1]], blocks=len(model.blocks),
+            per_block_max_rel=max(edge_rel), tol=TRUNK_REL_TOL)
+        if not max(edge_rel) < TRUNK_REL_TOL:
+            raise AssertionError(f"trunk kernel disagrees with its plain version at {shape}: "
+                                 f"{edge_rel}")
 
     start("3 patch kernel vs plain")
     # A 1100 x 1040 LR PNG from a gallery picture, resized and with seeded
@@ -405,21 +451,26 @@ def main(work):
 
     start("6 timings")
     with torch.inference_mode():
-        trunk_ms = cuda_ms(lambda: residual_trunk(trunk_in, weights))
-        trunk_plain_ms = cuda_ms(lambda: residual_trunk_reference(trunk_in, weights))
         x_cl = trunk_in.permute(0, 3, 1, 2)  # channels_last NCHW view
         lib_params = library_trunk_weights(model)
-        trunk_lib_ms = cuda_ms(lambda: library_trunk(x_cl, lib_params))
         p, o = _TILE_PATCH, _TILE_OVERLAP
         win = p + 2 * o
-        patch_ms = cuda_ms(lambda: extract_overlapping_patches(padded_main, p, p, o))
-        patch_plain_ms = cuda_ms(
-            lambda: extract_overlapping_patches_reference(padded_main, p, p, o))
         gh, gw = (padded_main.shape[0] - 2 * o) // p, (padded_main.shape[1] - 2 * o) // p
         rows = torch.arange(gh, device=dev)[:, None] * p + torch.arange(win, device=dev)
         cols = torch.arange(gw, device=dev)[:, None] * p + torch.arange(win, device=dev)
         rr, cc = rows[:, None, :, None], cols[None, :, None, :]
-        patch_lib_ms = cuda_ms(lambda: padded_main[rr, cc])
+        # name: (one call, calls per CUDA graph)
+        timed = {
+            "trunk": (lambda: residual_trunk(trunk_in, weights), 5),
+            "trunk_plain": (lambda: residual_trunk_reference(trunk_in, weights), 3),
+            "trunk_library": (lambda: library_trunk(x_cl, lib_params), 5),
+            "patches": (lambda: extract_overlapping_patches(padded_main, p, p, o), 50),
+            "patches_plain": (
+                lambda: extract_overlapping_patches_reference(padded_main, p, p, o), 20),
+            "patches_library": (lambda: padded_main[rr, cc], 20),
+        }
+        call_ms = {name: cuda_ms(fn) for name, (fn, _) in timed.items()}
+        device_ms = {name: graph_ms(fn, calls) for name, (fn, calls) in timed.items()}
         tiled_ms = cuda_ms(lambda: _upscale(predict, tiled_lr[None], 4), runs=20, warmup=2)
         stages = stage_ms(model, lr_batch)
     b, hh, ww, c = trunk_in.shape
@@ -430,8 +481,14 @@ def main(work):
     trunk_bound = max(trunk_flops / PEAK_BF16_FLOPS, trunk_bytes / PEAK_BYTES_PER_S) * 1e3
     patch_bound = patch_bytes / PEAK_BYTES_PER_S * 1e3
     mpix = 16 * TILED_HW[0] * TILED_HW[1] / 1e6
+    trunk_ms, patch_ms = call_ms["trunk"], call_ms["patches"]
     log(6, trunk_ms=trunk_ms, trunk_tflops=trunk_flops / trunk_ms / 1e9,
+        trunk_bound_share=trunk_bound / trunk_ms, trunk_library_ms=call_ms["trunk_library"],
         patches_ms=patch_ms, patches_gb_s=patch_bytes / patch_ms / 1e6,
+        patches_bound_share=patch_bound / patch_ms,
+        patches_library_ms=call_ms["patches_library"], device_ms=device_ms,
+        trunk_device_tflops=trunk_flops / device_ms["trunk"] / 1e9,
+        patches_device_gb_s=patch_bytes / device_ms["patches"] / 1e6,
         tiled_upscale_ms=tiled_ms, tiled_output_mpix_per_s=mpix / (tiled_ms / 1e3),
         forward_stage_ms_one_tiled_batch=stages, runs=TIMING_RUNS, card=smi_line)
 
@@ -441,23 +498,31 @@ def main(work):
     def by_path(key):
         return {label: counts[key] for label, counts in launches_by_path.items()}
 
+    def times(key):
+        """One call from Python (ms), and device time over a CUDA graph."""
+        return {"ms": call_ms[key], "plain_ms": call_ms[f"{key}_plain"],
+                "library_ms": call_ms[f"{key}_library"], "device_ms": device_ms[key],
+                "device_plain_ms": device_ms[f"{key}_plain"],
+                "device_library_ms": device_ms[f"{key}_library"]}
+
     kernels = [
         {"name": "residual_trunk", "route": "cuda",
          "source": "simplesr_tpu_torch/csrc/trunk.cu",
          "replaces": "simplesr_tpu/ops/pallas/trunk_kernel.py:161",
          "launches": total("trunk"), "launches_by_path": by_path("trunk"),
-         "max_abs_err": trunk_err, "ms": trunk_ms,
-         "plain_ms": trunk_plain_ms, "bound_ms": trunk_bound,
+         "max_abs_err": trunk_err, **times("trunk"), "bound_ms": trunk_bound,
          "bound_by": "operations" if trunk_flops / PEAK_BF16_FLOPS
          >= trunk_bytes / PEAK_BYTES_PER_S else "bytes",
-         "library_ms": trunk_lib_ms},
+         "bound_share": trunk_bound / trunk_ms,
+         "resources": {"conv1": _build.kernel_attributes("ssr_trunk_attributes", 0),
+                       "conv2": _build.kernel_attributes("ssr_trunk_attributes", 1)}},
         {"name": "extract_overlapping_patches", "route": "cuda",
          "source": "simplesr_tpu_torch/csrc/patches.cu",
          "replaces": "simplesr_tpu/ops/pallas/tiling_kernel.py:73",
          "launches": total("patches"), "launches_by_path": by_path("patches"),
-         "max_abs_err": patch_err, "ms": patch_ms,
-         "plain_ms": patch_plain_ms, "bound_ms": patch_bound, "bound_by": "bytes",
-         "library_ms": patch_lib_ms},
+         "max_abs_err": patch_err, **times("patches"), "bound_ms": patch_bound,
+         "bound_by": "bytes", "bound_share": patch_bound / patch_ms,
+         "resources": _build.kernel_attributes("ssr_patches_attributes")},
     ]
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(smi_line, flush=True)

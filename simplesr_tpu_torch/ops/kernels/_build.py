@@ -20,12 +20,13 @@ from pathlib import Path
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
-NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
+NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-shared",
               "-Xcompiler", "-fPIC", "-lineinfo")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _library = None
+_functions = {}
 
 
 def find_nvcc():
@@ -94,15 +95,34 @@ def library():
 
 def function(name, argtypes):
     """A C launcher of the library, typed: every launcher returns a CUDA
-    error code (0 on success)."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    error code (0 on success). Typed once per process: a launch then pays
+    a dictionary lookup, not the lock and the symbol lookup."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
     return fn
 
 
+ATTRIBUTE_KEYS = ("registers", "local_bytes", "static_shared_bytes", "dynamic_shared_bytes",
+                  "threads")
+
+
+def kernel_attributes(name, *args):
+    """A kernel's resources as its library function ``name`` reads them
+    with ``cudaFuncGetAttributes``: registers per thread, local (spill)
+    bytes per thread, static and dynamic shared bytes, threads per block."""
+    out = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
+    fn = function(name, [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)])
+    check(fn(*args, out), name)
+    return dict(zip(ATTRIBUTE_KEYS, out))
+
+
 def check(code, what):
-    """Raise on a non-zero CUDA error code returned by a launcher."""
+    """Raise on a non-zero error code returned by a launcher (a CUDA error,
+    or one of the library's own negative codes)."""
     if code != 0:
         message = library().ssr_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({message})")

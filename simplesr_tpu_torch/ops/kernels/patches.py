@@ -4,8 +4,9 @@
 Replaces ``extract_overlapping_patches_pallas``
 (simplesr_tpu/ops/pallas/tiling_kernel.py). From a pre-padded (Hp, Wp, C)
 image it takes the row-major grid of (ph + 2o, pw + 2o, C) windows at stride
-(ph, pw). Pure data movement, bounded by bytes on the H100: the kernel copies
-one float32 element per thread, coalesced on both sides, for any C and
+(ph, pw). Pure data movement, bounded by bytes on the H100: one warp of the
+kernel copies one window row, in float4s where both row starts and the
+row's length are 16-byte multiples and in floats otherwise, for any C and
 patch size; the result is bit-exact.
 """
 

@@ -11,18 +11,78 @@ with SAME zero padding, f32 accumulation and one rounding to bf16 per conv,
 after the bias, PReLU and residual add (the TPU kernel's rounding points).
 The kernel is bounded by operations on the H100 (about 290 FLOP per byte of
 activations moved, at the bf16 ridge); ``csrc/trunk.cu`` says how its design
-meets that. It takes C = 64 and any H, W.
+meets that. It takes C = 64 and any H, W, and reads each conv's weights as
+the image that ``swizzle_trunk_weights`` builds here from the logical
+weights, once per weight tensor, where a CPU test can check it.
 """
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from simplesr_tpu_torch.ops.kernels import _build
 
 KERNEL_WIDTH = 64
+TAP_BYTES = KERNEL_WIDTH * KERNEL_WIDTH * 2
+
+
+def _image_source():
+    """For each element of one tap's image, the flat (C_in, C_out) index of
+    the logical weight it holds.
+
+    Image row r (wgmma's N index) holds output channel
+    16 * ((r >> 1) & 3) + 2 * (r >> 3) + (r & 1), so that the accumulators
+    of each thread hold 16 consecutive channels; input channel k of row r
+    lies at element r * 64 + ((k >> 3) ^ (r & 7)) * 8 + (k & 7): K-major rows
+    of 128 bytes with the 128-byte swizzle of wgmma and TMA.
+    """
+    r = np.arange(KERNEL_WIDTH)[:, None]
+    k = np.arange(KERNEL_WIDTH)[None, :]
+    row_channel = 16 * ((r >> 1) & 3) + 2 * (r >> 3) + (r & 1)
+    offset = r * KERNEL_WIDTH + (((k >> 3) ^ (r & 7)) << 3) + (k & 7)
+    source = np.empty(KERNEL_WIDTH * KERNEL_WIDTH, dtype=np.int64)
+    source[offset.reshape(-1)] = (k * KERNEL_WIDTH + row_channel).reshape(-1)
+    return torch.from_numpy(source)
+
+
+_SOURCE = _image_source()
+_source_on = {}  # device -> _SOURCE there
+
+
+def swizzle_trunk_weights(weight):
+    """The kernel's weight image of (..., 9, C_in, C_out) taps, C = 64: the
+    same shape, each tap's 8 KB permuted as ``_image_source`` says. One
+    gather on the weights' device."""
+    if tuple(weight.shape[-3:]) != (9, KERNEL_WIDTH, KERNEL_WIDTH):
+        raise ValueError(f"weight image needs (..., 9, {KERNEL_WIDTH}, {KERNEL_WIDTH}) taps, "
+                         f"got {tuple(weight.shape)}")
+    source = _source_on.get(weight.device)
+    if source is None:
+        source = _source_on[weight.device] = _SOURCE.to(weight.device)
+    taps = weight.reshape(-1, KERNEL_WIDTH * KERNEL_WIDTH)
+    return taps.index_select(1, source).view(weight.shape)
+
+
+_images = {}  # id(weight) -> (its version, its image), while the weight lives
+
+
+def _kernel_image(weight):
+    """``swizzle_trunk_weights(weight)``, built once per weight tensor and
+    dropped with it; built again if the weight was written in place since
+    (an inference tensor keeps no version, and is taken as unchanged)."""
+    version = None if torch.is_inference(weight) else weight._version
+    cached = _images.get(id(weight))
+    if cached is not None and cached[0] == version:
+        return cached[1]
+    if cached is None:
+        weakref.finalize(weight, _images.pop, id(weight), None)
+    image = swizzle_trunk_weights(weight)
+    _images[id(weight)] = (version, image)
+    return image
 
 
 class TrunkWeights(NamedTuple):
@@ -101,7 +161,7 @@ def residual_trunk(x, weights):
     for t in weights:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("trunk weights must be contiguous on the input's device")
-    for t in weights[1:]:
+    for t in (weights.b1, weights.b2, weights.alpha):
         if t.dtype != torch.float32 or tuple(t.shape) != (num_blocks, KERNEL_WIDTH):
             raise ValueError(f"trunk biases and alphas must be ({num_blocks}, "
                              f"{KERNEL_WIDTH}) float32")
@@ -110,10 +170,16 @@ def residual_trunk(x, weights):
     if out.numel() == 0 or num_blocks == 0:
         return out
     scratch = torch.empty_like(out)
+    image = _kernel_image(weights.weight)
+    # TMA and the bulk weight copies need 16-byte aligned bases; every stride
+    # of the activation maps is a multiple of a pixel's 128 bytes.
+    for t in (out, scratch, image, weights.b1, weights.b2, weights.alpha):
+        if t.data_ptr() % 16:
+            raise ValueError("residual_trunk: a buffer is not 16-byte aligned")
     fn = _build.function("ssr_trunk_forward",
                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        code = fn(out.data_ptr(), scratch.data_ptr(), weights.weight.data_ptr(),
+        code = fn(out.data_ptr(), scratch.data_ptr(), image.data_ptr(),
                   weights.b1.data_ptr(), weights.b2.data_ptr(), weights.alpha.data_ptr(),
                   b, h, w, num_blocks, torch.cuda.current_stream().cuda_stream)
     _build.check(code, "trunk kernel")

@@ -6,9 +6,12 @@ imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from simplesr_tpu_torch.ops.kernels import (
     extract_overlapping_patches,
@@ -41,7 +44,10 @@ def _trunk_weights(rng, num_blocks, c, device):
     return TrunkWeights(*(t.to(device) for t in pack_trunk_weights(blocks)))
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 32), (2, 13, 37), (3, 40, 17)])
+# (1, 1, 1): fewer tiles (4 x 64 px) than SMs; (2, 13, 37) ragged on both
+# axes; (3, 200, 260): 3,315 tiles, more than CTAs times stages.
+@pytest.mark.parametrize("shape", [(1, 8, 32), (2, 13, 37), (3, 40, 17), (1, 1, 1),
+                                   (3, 200, 260)])
 def test_trunk_kernel_matches_plain(cuda, shape):
     rng = np.random.default_rng(0)
     weights = _trunk_weights(rng, 2, 64, cuda)
@@ -62,7 +68,42 @@ def test_trunk_kernel_refuses_what_it_cannot_run(cuda):
     with pytest.raises(ValueError):
         residual_trunk(x.float(), weights)
     with pytest.raises(ValueError):
+        residual_trunk(x, weights._replace(weight=weights.weight[..., :32, :32].contiguous()))
+    with pytest.raises(ValueError):
         residual_trunk(x.requires_grad_(), weights)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 64), (2, 9, 130)])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_one_trunk_conv_matches_conv2d(cuda, shape, mode):
+    """One conv of the kernel (mode 0: PReLU(conv + b); mode 1: x + conv + b,
+    in place) against float32 F.conv2d of the same bf16 values."""
+    from simplesr_tpu_torch.ops.kernels import _build
+    from simplesr_tpu_torch.ops.kernels.trunk import _oihw, swizzle_trunk_weights
+
+    rng = np.random.default_rng(3)
+    weights = _trunk_weights(rng, 1, 64, cuda)
+    x = torch.from_numpy(rng.normal(0, 1, shape + (64,)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    prev = torch.from_numpy(rng.normal(0, 1, shape + (64,)).astype(np.float32))
+    prev = prev.to(cuda, torch.bfloat16)
+    dst = prev.clone()
+    image = swizzle_trunk_weights(weights.weight)
+    fn = _build.function("ssr_trunk_conv", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
+    _build.check(fn(x.data_ptr(), dst.data_ptr(), image[0, mode].data_ptr(),
+                    weights.b1[0].data_ptr(), weights.alpha[0].data_ptr(), mode, *shape,
+                    torch.cuda.current_stream().cuda_stream), "one trunk conv")
+    torch.cuda.synchronize()
+    t = F.conv2d(x.permute(0, 3, 1, 2).float(), _oihw(weights.weight[0, mode]), weights.b1[0],
+                 padding=1)
+    if mode == 0:
+        t = torch.where(t >= 0, t, weights.alpha[0].view(1, -1, 1, 1) * t)
+    else:
+        t = prev.permute(0, 3, 1, 2).float() + t
+    ref = t.to(torch.bfloat16).permute(0, 2, 3, 1).float()
+    rel = ((dst.float() - ref).abs().max() / ref.abs().max()).item()
+    assert rel < 1e-2  # one bf16 rounding apart at most
 
 
 @pytest.mark.parametrize("size,patch,overlap", [
@@ -70,6 +111,10 @@ def test_trunk_kernel_refuses_what_it_cannot_run(cuda):
     ((97, 131, 3), 50, 8),
     ((64, 80, 5), 24, 4),
     ((70, 70, 1), 33, 0),
+    # 48-px windows of 3 channels: 144-float rows, but the 399-float image
+    # rows leave every other row start off 16 bytes, so one launch takes both
+    # the float4 and the 4-byte copies.
+    ((101, 133, 3), 40, 4),
 ])
 def test_patch_kernel_bit_exact(cuda, size, patch, overlap):
     rng = np.random.default_rng(1)
