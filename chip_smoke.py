@@ -33,7 +33,24 @@ plain PyTorch version, in one process, with no arguments:
      between two events, so that no host time between launches counts;
      median of 10 replays); the tiled upscale end to end (median of 20
      runs); each kernel's registers, spills and shared memory as
-     ``cudaFuncGetAttributes`` reads them.
+     ``cudaFuncGetAttributes`` reads them;
+  7. training at full width through ``train.SRModel``: the production
+     recipe's generator (x4, 16 blocks, 64 filters, BN-free, bf16 compute,
+     float32 parameters, seeded), Adam on the recipe's piecewise schedule
+     with the NaN guard, batches of 16 HR crops of 96 x 96 from the gallery
+     PNGs (flips and 90 degree turns) and their 24 x 24 LR from the port's
+     bicubic resize. Checks: the gradients through ``TrunkFunction`` (kernel
+     forward) against autograd straight through the plain trunk; 30 steps
+     with finite losses that fall; one trunk launch per ``train_step`` and
+     ``validation_step`` and none in the backward; ``generate`` bit-equal to
+     a module loaded from ``save_model``'s file; the flagship with grad
+     enabled bit-equal to ``inference_mode``; a 128-wide model on CUDA
+     against the CPU, with no trunk launch. Printed, not gated: the step's
+     time (median of 30, CUDA events) and its forward, backward and
+     optimizer parts, HR MPix/s, peak memory, and the same step with the
+     trunk in plain autograd (cuDNN, activations stored); for each, a
+     ``torch.profiler`` trace of 3 steps (device busy time, idle share, the
+     kernels that take the most device time).
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -43,6 +60,7 @@ non-zero without that line; without a CUDA device it exits 2 at once.
 """
 
 import contextlib
+import copy
 import faulthandler
 import json
 import statistics
@@ -84,6 +102,32 @@ TRUNK_REL_TOL = 1e-2
 # does too). The chain is held to be as accurate as the plain version, against
 # float64 sums, up to this factor on the relative Frobenius error:
 TRUNK_CHAIN_FRO_RATIO = 1.5
+# Phase 7: the production recipe (examples/training/srresnet_x4_paired_production.yaml)
+# at its batch of 16 crops of 96 x 96; its paired_train: 2 packs two batch
+# items into channels for the TPU's 128-lane matrix unit and is not ported.
+TRAIN_BATCH = 16
+TRAIN_HR = 96
+TRAIN_STEPS = 30
+TRAIN_SCHEDULE = {"piecewise_constant_decay": {"boundaries": [100000], "values": [1e-4, 1e-5]}}
+# Gradients through TrunkFunction (kernel forward) vs autograd straight
+# through the plain trunk, per parameter tensor, relative Frobenius error.
+# Both backwards are the same recomputed plain version; they differ only
+# through the forward, where kernel and plain version round the 32 bf16
+# activations apart (phase 2: per block max rel ~5e-3, the 16-block chain
+# ~9e-3 in Frobenius norm). That difference reaches every gradient through
+# the tail and the trunk's incoming gradient, so 3e-2 is about 3x the chain's.
+TRAIN_GRAD_FRO_TOL = 3e-2
+# The loss is a mean of 442,368 squared errors: the same rounding
+# differences average out; 1e-2 is far above them and far below a wrong trunk.
+TRAIN_LOSS_REL_TOL = 1e-2
+WIDE_FILTERS = 128  # fault check: widths other than 64 run ResBlocks on CUDA
+# The 128-wide model on CUDA against the CPU: max abs under ROUTE_MAX_ABS_TOL,
+# and its mean abs error against float64 sums (the same bf16 rounding points)
+# at most this factor of the CPU's. Its mean abs difference from the CPU is
+# printed and not gated: on this seeded model any two summation orders part
+# by about 3.5e-3 after 16 blocks (float32 against float64 sums, on the CPU),
+# above the 2e-3 of the route's bound.
+WIDE_MEAN_RATIO = 1.5
 ROUTE_MAX_ABS_TOL = 5e-2  # whole upscale on [-1, 1]: bf16 trunk differences through the tail
 ROUTE_MEAN_ABS_TOL = 2e-3
 ENGINE_MAX_ABS_TOL = 5e-2  # batched vs one-shot: cuDNN may pick other algorithms per batch
@@ -138,18 +182,17 @@ def graph_ms(fn, calls, replays=10):
 def plain_kernels():
     """Run the serving route with the kernels' plain versions in place of the
     kernels, on the same device."""
-    from simplesr_tpu_torch.models import srresnet
     from simplesr_tpu_torch.ops import tiling
     from simplesr_tpu_torch.ops.kernels import (extract_overlapping_patches_reference,
-                                                residual_trunk_reference)
+                                                residual_trunk_reference, trunk)
 
-    saved = srresnet.residual_trunk, tiling.extract_overlapping_patches
-    srresnet.residual_trunk = residual_trunk_reference
+    saved = trunk.residual_trunk, tiling.extract_overlapping_patches
+    trunk.residual_trunk = residual_trunk_reference  # what TrunkFunction's forward runs
     tiling.extract_overlapping_patches = extract_overlapping_patches_reference
     try:
         yield
     finally:
-        srresnet.residual_trunk, tiling.extract_overlapping_patches = saved
+        trunk.residual_trunk, tiling.extract_overlapping_patches = saved
 
 
 def trunk_float64(x, weights):
@@ -166,6 +209,23 @@ def trunk_float64(x, weights):
         t = F.conv2d(y.double(), w2, weights.b2[blk].double(), padding=1)
         h = (h.double() + t).to(torch.bfloat16)
     return h.permute(0, 2, 3, 1)
+
+
+def float64_sums(model, x):
+    """``model`` (on the CPU) on ``x`` with every bf16 conv summed in float64
+    and rounded to bf16 where the model rounds."""
+    from simplesr_tpu_torch.models import blocks
+
+    def conv2d(h, weight, bias, dtype):
+        y = F.conv2d(h.to(dtype).double(), weight.to(dtype).double(),
+                     padding=weight.shape[-1] // 2).to(dtype)
+        return y + bias.to(dtype).view(1, -1, 1, 1)
+
+    saved, blocks.conv2d = blocks.conv2d, conv2d
+    try:
+        return model(x)
+    finally:
+        blocks.conv2d = saved
 
 
 def rel_errors(got, ref):
@@ -230,6 +290,260 @@ def counted(run):
     return out, {KERNEL_KEYS[w.__name__]: w.launches for w in WRAPPERS}
 
 
+def training_batches(gen, images, count):
+    """``count`` batches of TRAIN_BATCH (LR, HR) pairs, made on the card: a
+    random TRAIN_HR crop of each gallery image (uint8 HWC on the card), each
+    flipped up-down and left-right at random and turned by 90 or 180 degrees
+    at random; HR in [-1, 1], LR the port's antialiased bicubic to a quarter
+    of the side, in [0, 1]."""
+    from simplesr_tpu_torch.core.ranges import normalize_01, normalize_11
+    from simplesr_tpu_torch.ops.augment import flip_along_x, flip_along_y, rotate90
+    from simplesr_tpu_torch.ops.crop import random_crops
+    from simplesr_tpu_torch.ops.resize import resize
+
+    batches = []
+    for _ in range(count):
+        crops = []
+        for i in range(TRAIN_BATCH):
+            crop = random_crops(gen, images[i % len(images)], 1, (TRAIN_HR, TRAIN_HR))[0]
+            flips = torch.randint(0, 2, (2,), generator=gen)
+            crop = flip_along_x(crop) if flips[0] else crop
+            crop = flip_along_y(crop) if flips[1] else crop
+            crops.append(rotate90(gen, crop))
+        hr = torch.stack(crops).float()
+        lr = resize(normalize_01(hr), (TRAIN_HR // 4, TRAIN_HR // 4), method="bicubic",
+                    antialias=True)
+        batches.append((lr.contiguous(), normalize_11(hr).contiguous()))
+    return batches
+
+
+def events_ms(parts, runs):
+    """Median ms of each of a sequence of steps, timed as consecutive CUDA
+    events around each, over ``runs`` runs of the whole sequence."""
+    times = {name: [] for name, _ in parts}
+    for _ in range(runs):
+        marks = [torch.cuda.Event(enable_timing=True)]
+        marks[0].record()
+        for _, fn in parts:
+            fn()
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        marks[-1].synchronize()
+        for (name, _), a, b in zip(parts, marks, marks[1:]):
+            times[name].append(a.elapsed_time(b))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def profile_steps(step, steps=3, top=8):
+    """A ``torch.profiler`` trace of ``steps`` calls of ``step``: the
+    device's busy time per step (the sum of the kernels' self device time),
+    the wall time per step, the idle share, and the kernels that took the
+    most device time (ms per step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # the kernels themselves (not the operators that launched them, which
+    # would count the same device time twice)
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3 / steps
+    events.sort(key=device_us, reverse=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+            "top_kernels_ms": [[e.key[:80], device_us(e) / 1e3 / steps, e.count // steps]
+                               for e in events[:top]]}
+
+
+def train_phase(dev, work, gen, launches_by_path, card):
+    """Phase 7: the training path through SRModel (see the docstring)."""
+    from simplesr_tpu_torch.data.png import read_png
+    from simplesr_tpu_torch.ops.kernels import WRAPPERS, residual_trunk, residual_trunk_reference
+    from simplesr_tpu_torch.ops.kernels.trunk import pack_trunk_weights
+    from simplesr_tpu_torch.train import Generator, SRModel, load_model
+
+    start("7 training: SRModel, production recipe at full width")
+    print("reduced: paired_train: 2 of the recipe (TPU channel packing) is not ported; "
+          "the batch runs unpacked", flush=True)
+    images = [torch.from_numpy(read_png(p)).to(dev)
+              for p in sorted((ROOT / "data/corpus/gallery").glob("*.png"))]
+    batches = training_batches(gen, images, 2 * TRAIN_STEPS + 1)
+
+    class Dirs:
+        model_dir = str(work / "train" / "models")
+        checkpoint_dir = str(work / "train" / "checkpoints")
+
+    generator = Generator.srresnet(4, num_blocks=16, num_filters=64, batch_norm=False,
+                                   dtype="bfloat16", seed=SEED, device=dev)
+    model = SRModel("resnet", generator, "Adam", {"learning_rate": TRAIN_SCHEDULE},
+                    config=Dirs, device=dev)
+    module = generator.model()
+    params = list(module.parameters())
+
+    def grads(lr, hr):
+        module.train()
+        loss, _ = generator.calculate_loss(module(lr).float(), hr, None, None)
+        return loss, torch.autograd.grad(loss, params)
+
+    # check 1: gradients through the kernel's forward vs straight through the plain trunk
+    lr, hr = batches[-1]
+    (loss_k, grads_k), counts_fwd_bwd = counted(lambda: grads(lr, hr))
+    module._trunk = lambda h: residual_trunk_reference(
+        h.permute(0, 2, 3, 1), pack_trunk_weights(module._block_parameters())).permute(0, 3, 1, 2)
+    try:
+        loss_p, grads_p = grads(lr, hr)
+    finally:
+        del module._trunk
+    names = [n for n, _ in module.named_parameters()]
+    grad_fro = {n: ((a - b).norm() / b.norm()).item() for n, a, b in zip(names, grads_k, grads_p)}
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst = max(grad_fro, key=grad_fro.get)
+    log(7, check="gradients, TrunkFunction vs plain trunk in autograd", loss_rel=loss_rel,
+        loss_rel_tol=TRAIN_LOSS_REL_TOL, max_grad_fro_rel=grad_fro[worst], worst=worst,
+        trunk_grad_fro_rel_max=max(v for n, v in grad_fro.items() if n.startswith("blocks")),
+        grad_fro_tol=TRAIN_GRAD_FRO_TOL, launches_forward_and_backward=counts_fwd_bwd)
+    if not (loss_rel < TRAIN_LOSS_REL_TOL and grad_fro[worst] < TRAIN_GRAD_FRO_TOL):
+        raise AssertionError(f"gradients through the trunk kernel disagree: loss {loss_rel}, "
+                             f"{worst} {grad_fro[worst]}")
+    if counts_fwd_bwd["trunk"] != 1:
+        raise AssertionError(f"one forward and backward launched {counts_fwd_bwd}")
+
+    # check 2 and 3: 30 steps through the lifecycle, one launch per step
+    def train():
+        model.before_epoch()
+        per_step = []
+        for lr, hr in batches[:TRAIN_STEPS]:
+            before = residual_trunk.launches
+            model.train_step(lr, hr)
+            per_step.append(residual_trunk.launches - before)
+            model.after_train_batch()
+        return per_step
+
+    per_step, train_counts = counted(train)
+    launches_by_path["sr_model_train_step_x30"] = train_counts
+    _, valid_counts = counted(lambda: (model.validation_step(*batches[-1]),
+                                       model.after_validation_batch()))
+    launches_by_path["sr_model_validation_step"] = valid_counts
+    losses = [float(v) for v in model.histories()["train_batch"]["generator_loss"]]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(7, check="30 train steps", losses=losses, first5=first, last5=last,
+        launches_per_step=sorted(set(per_step)), train_launches=train_counts,
+        validation_launches=valid_counts, optimizer_count=model.optimizer.count)
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"training did not bring the loss down: {first} -> {last}")
+    if per_step != [1] * TRAIN_STEPS or train_counts != {"trunk": TRAIN_STEPS, "patches": 0}:
+        raise AssertionError(f"train_step launches {per_step}, {train_counts}")
+    if valid_counts != {"trunk": 1, "patches": 0}:
+        raise AssertionError(f"validation_step launches {valid_counts}")
+
+    # check 4: generate vs the saved model file, bit for bit
+    model.after_epoch()
+    model.after_training()
+    best = Path(Dirs.model_dir) / "resnet_gen_best.msgpack"
+    x = batches[-1][0][:4]
+    got = model.generate(x)
+    with torch.inference_mode():
+        ref = load_model(best, device=dev)(x)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"generate vs the saved file: {(got - ref).abs().max().item()}")
+
+    # check 5: the flagship with grad enabled equals inference_mode
+    flagship = load_model(FLAGSHIP, device=dev)
+    x = torch.rand((2, 40, 48, 3), generator=gen).to(dev)
+    with_grad, grad_counts = counted(lambda: flagship(x))
+    with torch.inference_mode():
+        no_grad = flagship(x)
+    if not (with_grad.requires_grad and torch.equal(with_grad.detach(), no_grad)
+            and grad_counts["trunk"] == 1):
+        raise AssertionError(f"flagship with grad enabled vs inference_mode: {grad_counts}")
+
+    # check 6: a 128-wide model on CUDA runs its ResBlocks and matches the CPU
+    wide_cpu = Generator.srresnet(4, num_blocks=16, num_filters=WIDE_FILTERS, batch_norm=False,
+                                  dtype="bfloat16", seed=SEED, device="cpu").model()
+    with torch.no_grad():
+        for block in wide_cpu.blocks:
+            block.act.alpha.uniform_(0.0, 0.3, generator=gen)
+    wide_gpu = copy.deepcopy(wide_cpu).to(dev)
+    x = torch.rand((1, 32, 32, 3), generator=gen)
+    with torch.inference_mode():
+        wide_out, wide_counts = counted(lambda: wide_gpu(x.to(dev)))
+        wide_out, wide_ref = wide_out.cpu(), wide_cpu(x)
+        exact = float64_sums(wide_cpu, x)
+    wide = {"max_abs": (wide_out - wide_ref).abs().max().item(),
+            "mean_abs": (wide_out - wide_ref).abs().mean().item(),
+            "cuda_vs_float64_mean_abs": (wide_out - exact).abs().mean().item(),
+            "cpu_vs_float64_mean_abs": (wide_ref - exact).abs().mean().item(),
+            "launches": wide_counts}
+    log(7, check="faults", generate_vs_saved_file_bit_equal=True,
+        flagship_grad_vs_inference_mode_bit_equal=True, wide_128_cuda_vs_cpu=wide,
+        tol_max_abs=ROUTE_MAX_ABS_TOL, mean_vs_float64_ratio_tol=WIDE_MEAN_RATIO)
+    if not (wide["max_abs"] < ROUTE_MAX_ABS_TOL
+            and wide["cuda_vs_float64_mean_abs"]
+            <= WIDE_MEAN_RATIO * wide["cpu_vs_float64_mean_abs"]
+            and wide_counts == {"trunk": 0, "patches": 0}):
+        raise AssertionError(f"128-wide model on CUDA vs CPU: {wide}")
+
+    # timings, printed and not gated
+    timed = batches[TRAIN_STEPS:2 * TRAIN_STEPS]
+
+    def step_times(label):
+        it = iter(timed * 2)  # 3 warm-up steps and TRAIN_STEPS timed ones
+        for _ in range(3):
+            model.train_step(*next(it))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: model.train_step(*next(it)), runs=TRAIN_STEPS, warmup=0)
+        return {f"{label}_step_ms": ms, f"{label}_hr_mpix_per_s":
+                TRAIN_BATCH * TRAIN_HR ** 2 / 1e6 / (ms / 1e3),
+                f"{label}_peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+    result = step_times("trunk_function")
+    state = {}  # the loss and gradients handed from one timed part to the next
+
+    def forward():
+        module.train()
+        lr, hr = timed[0]
+        state["loss"], _ = generator.calculate_loss(module(lr).float(), hr, None, None)
+
+    def backward():
+        before = residual_trunk.launches
+        state["grads"] = torch.autograd.grad(state["loss"], params)
+        state["backward_launches"] = residual_trunk.launches - before
+
+    parts = events_ms([("forward", forward), ("backward", backward),
+                       ("optimizer", lambda: model.optimizer.apply(params, state["grads"]))],
+                      runs=10)
+    if state["backward_launches"] != 0:
+        raise AssertionError(f"the backward launched {state['backward_launches']} trunks")
+    module.uses_trunk_kernel = False  # its ResBlocks: cuDNN bf16 convs, activations stored
+    try:
+        result.update(step_times("plain_autograd"))
+    finally:
+        module.uses_trunk_kernel = True
+    # the profiler last, after every timing: its hooks may slow later launches
+    traces = {}
+    for label, kernel in (("trunk_function", True), ("plain_autograd", False)):
+        module.uses_trunk_kernel = kernel
+        try:
+            it = iter(timed)
+            traces[label] = profile_steps(lambda: model.train_step(*next(it)))
+        finally:
+            module.uses_trunk_kernel = True
+    log(7, **result, trunk_function_parts_ms=parts, backward_trunk_launches=0,
+        batch=[TRAIN_BATCH, TRAIN_HR, TRAIN_HR, 3], runs=TRAIN_STEPS, card=card)
+    log(7, profiler_3_steps=traces, card=card)
+
+
 def main(work):
     from simplesr_tpu_torch.data.png import read_img, read_png, write_png
     from simplesr_tpu_torch.eval.evaluation import (_TILE_BATCH, _TILE_OVERLAP, _TILE_PATCH,
@@ -237,7 +551,8 @@ def main(work):
     from simplesr_tpu_torch.ops.kernels import (_build, extract_overlapping_patches,
                                                 extract_overlapping_patches_reference,
                                                 residual_trunk, residual_trunk_reference)
-    from simplesr_tpu_torch.ops.kernels.trunk import TrunkWeights
+    from simplesr_tpu_torch.ops.kernels.trunk import (TrunkWeights, pack_trunk_weights,
+                                                      swizzle_trunk_weights)
     from simplesr_tpu_torch.ops.tiling import _pad_amounts
     from simplesr_tpu_torch.tools.serve import SREngine
     from simplesr_tpu_torch.tools.upscale import upscale_files
@@ -248,16 +563,16 @@ def main(work):
     t_all = time.perf_counter()
 
     start("0 device")
-    name = torch.cuda.get_device_name(0)
+    card_name = torch.cuda.get_device_name(0)
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=30).stdout.strip().splitlines()
     except (OSError, subprocess.TimeoutExpired) as e:
-        smi = [f"{name}, power limit not read ({type(e).__name__})"]
-    smi_line = smi[0] if smi else f"{name}, power limit not read (nvidia-smi gave nothing)"
+        smi = [f"{card_name}, power limit not read ({type(e).__name__})"]
+    smi_line = smi[0] if smi else f"{card_name}, power limit not read (nvidia-smi gave nothing)"
     print(smi_line, flush=True)
-    log(0, device=name, count=torch.cuda.device_count(), nvidia_smi=smi_line,
+    log(0, device=card_name, count=torch.cuda.device_count(), nvidia_smi=smi_line,
         torch=torch.__version__, cuda=torch.version.cuda,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
@@ -473,6 +788,14 @@ def main(work):
         device_ms = {name: graph_ms(fn, calls) for name, (fn, calls) in timed.items()}
         tiled_ms = cuda_ms(lambda: _upscale(predict, tiled_lr[None], 4), runs=20, warmup=2)
         stages = stage_ms(model, lr_batch)
+        # the model's trunk (TrunkFunction under inference_mode: its packed
+        # weights kept while the parameters stay as they are, then the
+        # kernel), and packing and swizzling the weights alone
+        for key, fn, calls in (
+                ("trunk_model_path", lambda: model._trunk(x_cl), 5),
+                ("trunk_packing", lambda: swizzle_trunk_weights(
+                    pack_trunk_weights(model._block_parameters()).weight), 20)):
+            call_ms[key], device_ms[key] = cuda_ms(fn), graph_ms(fn, calls)
     b, hh, ww, c = trunk_in.shape
     nb = len(model.blocks)
     trunk_flops = 2 * b * hh * ww * 9 * c * c * 2 * nb
@@ -489,8 +812,12 @@ def main(work):
         patches_library_ms=call_ms["patches_library"], device_ms=device_ms,
         trunk_device_tflops=trunk_flops / device_ms["trunk"] / 1e9,
         patches_device_gb_s=patch_bytes / device_ms["patches"] / 1e6,
+        trunk_model_path_ms=call_ms["trunk_model_path"],
+        trunk_packing_ms=call_ms["trunk_packing"],
         tiled_upscale_ms=tiled_ms, tiled_output_mpix_per_s=mpix / (tiled_ms / 1e3),
         forward_stage_ms_one_tiled_batch=stages, runs=TIMING_RUNS, card=smi_line)
+
+    train_phase(dev, work, gen, launches_by_path, smi_line)
 
     def total(key):
         return sum(counts[key] for counts in launches_by_path.values())
@@ -527,7 +854,7 @@ def main(work):
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0

@@ -1,16 +1,41 @@
 """Mixed-precision policy, as simplesr_tpu.core.dtypes: parameters and
 outputs in float32, convolutions in bfloat16 unless a model says otherwise."""
 
+import contextlib
 import dataclasses
+import threading
 
 import torch
 
 # The generators' float32 output conv runs with TF32 on a CUDA device (inputs
 # rounded to a 10-bit mantissa, float32 sums), whatever torch's global flags
-# say. That is finer than the JAX package's float32 conv at its default
-# precision on a TPU (one bfloat16 pass), and well under one uint8 level of
-# the [-1, 1] output.
+# say, forward and backward. That is finer than the JAX package's float32 conv
+# at its default precision on a TPU (one bfloat16 pass), and well under one
+# uint8 level of the [-1, 1] output. The trunk's backward, which recomputes
+# its plain version in float32 convolutions of bf16 values, runs at the same
+# setting: TF32 holds bf16 operands exactly, and its gradients are rounded to
+# bf16 at every activation.
 OUTPUT_CONV_TF32 = True
+
+_CUDNN_FLAG_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def model_conv_precision(device):
+    """On a CUDA device, cuDNN's TF32 flag set to ``OUTPUT_CONV_TF32`` for
+    the convolutions launched inside. The flag is global and read when a
+    conv is launched, so a lock keeps two threads from restoring each
+    other's value. Elsewhere, nothing."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    with _CUDNN_FLAG_LOCK:
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = OUTPUT_CONV_TF32
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
 
 
 @dataclasses.dataclass(frozen=True)

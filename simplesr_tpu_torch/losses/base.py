@@ -1,0 +1,50 @@
+"""The loss-functor protocol, as simplesr_tpu.losses.base.
+
+Every generator loss is called as ``loss(hr_batch, sr_batch, hr_critic,
+sr_critic)`` and returns ``(weighted_loss, metrics)``, where ``metrics`` maps
+names to scalar tensors that the trainer accumulates. ``loss_weight`` counts
+only when ``weighted=True``; the metrics hold the unweighted loss under the
+functor's name and, when weighted, ``weighted_<name>``. A bare callable that
+returns a scalar is adapted to the protocol by ``adapt_generator_loss``.
+"""
+
+
+class Loss:
+    """Base class with the reference's weighting and metric conventions."""
+
+    name = "loss"
+
+    def __init__(self, weighted=False, loss_weight=1.0, track_metrics=True):
+        self.weighted = weighted
+        self.loss_weight = loss_weight if weighted else 1.0
+        self.track_metrics = track_metrics
+
+    def _package(self, loss):
+        weighted_loss = loss * self.loss_weight
+        metrics = {}
+        if self.track_metrics:
+            metrics[self.name] = loss
+            if self.weighted:
+                metrics[f"weighted_{self.name}"] = weighted_loss
+        return weighted_loss, metrics
+
+
+def adapt_generator_loss(fn):
+    """A bare callable ``f(hr, sr, hr_critic, sr_critic) -> scalar`` (or a
+    Loss-style functor, returned as it is) in the ``(loss, metrics)``
+    protocol."""
+    if hasattr(fn, "name") and hasattr(fn, "loss_weight"):
+        return fn
+
+    class _Adapted:
+        name = getattr(fn, "__name__", "custom_loss")
+        weighted = False
+        loss_weight = 1.0
+
+        def __call__(self, hr, sr, hr_critic, sr_critic):
+            out = fn(hr, sr, hr_critic, sr_critic)
+            if isinstance(out, tuple):
+                return out
+            return out, {self.name: out}
+
+    return _Adapted()

@@ -14,8 +14,10 @@ def build_generator_model(upsample_factor, architecture="srresnet", num_blocks=1
                           device="cuda"):
     """Build a generator from a saved model's config, in eval mode, on
     ``device``. Takes the same keys as simplesr_tpu's builder; the RRDB keys
-    are accepted and unused until RRDB is ported, and ``remat`` only changes
-    a backward pass, which the port does not run yet."""
+    are accepted and unused until RRDB is ported, and ``remat`` (memory
+    against recompute in the backward) changes nothing: the kernel's trunk
+    recomputes in its backward anyway, and other models store their
+    activations."""
     device = resolve_device(device)
     if architecture == "rrdb":
         raise NotImplementedError(

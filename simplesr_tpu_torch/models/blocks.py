@@ -3,7 +3,10 @@
 Numerics follow flax's ``nn.Conv(dtype=...)``: input, kernel and bias are
 cast to the compute dtype, and the bias is added after the convolution in
 that dtype. BatchNorm (eps 1e-3, Keras momentum 0.8) runs in float32 and
-returns float32. PReLU casts its per-channel slope to the input's dtype.
+returns float32, as flax's ``nn.BatchNorm``: in training mode it normalises
+by the batch's mean and biased variance (E[x^2] - E[x]^2, clipped at 0) and
+moves the running statistics by them; in eval mode it uses the running
+statistics. PReLU casts its per-channel slope to the input's dtype.
 """
 
 import torch
@@ -53,8 +56,24 @@ class ConvLayer(nn.Module):
     def forward(self, x):
         y = conv2d(x, self.conv.weight, self.conv.bias, self.dtype)
         if self.bn is not None:
-            y = self.bn(y.float())
+            y = batch_norm(self.bn, y.float())
         return y
+
+
+def batch_norm(bn, y):
+    """flax's BatchNorm of NCHW float32 ``y`` with ``bn``'s parameters and
+    running statistics, which training mode updates in place."""
+    if bn.training:
+        mean = y.mean((0, 2, 3))
+        var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        keep = 1.0 - bn.momentum  # Keras / flax momentum
+        with torch.no_grad():
+            bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
+            bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (y - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
 
 
 class SubpixelConvBlock(nn.Module):

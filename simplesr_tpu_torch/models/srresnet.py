@@ -4,53 +4,60 @@ form (the polyphase serving rewrite is not ported).
 9x9 conv (64 f) -> PReLU [skip] -> N residual blocks (conv3 [+BN] -> PReLU ->
 conv3 [+BN] -> add) -> conv3 [+BN] -> global skip add -> log2(scale) subpixel
 blocks -> 9x9 conv to 3 channels in float32 -> tanh. On a CUDA device that
-conv runs at ``core.dtypes.OUTPUT_CONV_TF32``'s precision, not at whatever
-cuDNN's global TF32 flag is.
+conv runs at ``core.dtypes.OUTPUT_CONV_TF32``'s precision, forward and
+backward, not at whatever cuDNN's global TF32 flag is.
 
 Input LR NHWC in [0, 1]; output NHWC float32 in [-1, 1]. The head, trunk and
 subpixel tail run in the model's dtype (bf16 for the committed models).
 
-The residual trunk of a BN-free bf16 model is ``ops.kernels.residual_trunk``
-(the CUDA kernel on the GPU, its plain version on the CPU); its packed weights
-are kept as buffers, built again whenever a state dict is loaded. A model
-with BatchNorm, or in float32, runs its trunk block by block in PyTorch ops
-on every device: the kernel computes neither.
+The residual trunk of a BN-free bf16 model with 64 filters is
+``ops.kernels.TrunkFunction``: the CUDA kernel on the GPU, its plain version
+on the CPU, fed the blocks' parameters as they are at each call (packed
+again whenever one changed), and differentiable through them. Any other
+model (BatchNorm, float32, another width) runs its ResBlock modules with
+flax's numerics on every device, as the JAX package runs every model: the
+kernel, like the TPU kernel, takes C = 64 bf16 BN-free blocks only.
 """
-
-import threading
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from simplesr_tpu_torch.core.dtypes import OUTPUT_CONV_TF32
+from simplesr_tpu_torch.core.dtypes import model_conv_precision
 from simplesr_tpu_torch.models.blocks import ConvLayer, PReLU, SubpixelConvBlock, glorot_conv
 from simplesr_tpu_torch.ops.kernels.trunk import (
     KERNEL_WIDTH,
-    TrunkWeights,
+    TrunkFunction,
     pack_trunk_weights,
-    residual_trunk,
 )
 
 _ALLOWED_SCALES = (2, 4, 8)
-_CUDNN_FLAG_LOCK = threading.Lock()
+
+
+class _OutputConv(torch.autograd.Function):
+    """A float32 SAME convolution whose forward and backward both run at the
+    model's precision (``model_conv_precision``): autograd runs a backward
+    after the forward's flag has been restored."""
+
+    @staticmethod
+    def forward(ctx, h, weight, bias):
+        ctx.save_for_backward(h, weight)
+        with model_conv_precision(h.device):
+            return F.conv2d(h, weight, bias, padding=weight.shape[-1] // 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, weight = ctx.saved_tensors
+        pad = weight.shape[-1] // 2
+        with model_conv_precision(h.device):
+            return torch.ops.aten.convolution_backward(
+                grad, h, weight, [weight.shape[0]], [1, 1], [pad, pad], [1, 1], False,
+                [0, 0], 1, list(ctx.needs_input_grad))
 
 
 def output_conv(h, conv):
-    """``conv`` in float32 on ``h``; on CUDA with cuDNN's TF32 flag set to
-    ``OUTPUT_CONV_TF32`` for this call only. The flag is global and read when
-    the conv is launched, so a lock keeps two threads from restoring each
-    other's value."""
-    args = (h.float(), conv.weight.float(), conv.bias.float())
-    if h.device.type != "cuda":
-        return F.conv2d(*args, padding=conv.padding)
-    with _CUDNN_FLAG_LOCK:
-        saved = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = OUTPUT_CONV_TF32
-        try:
-            return F.conv2d(*args, padding=conv.padding)
-        finally:
-            torch.backends.cudnn.allow_tf32 = saved
+    """``conv`` in float32 on ``h``, at the model's precision on CUDA."""
+    return _OutputConv.apply(h.float(), conv.weight.float(), conv.bias.float())
 
 
 class ResBlock(nn.Module):
@@ -90,37 +97,41 @@ class SRResNet(nn.Module):
             SubpixelConvBlock(num_filters, 2, activation=True, dtype=dtype)
             for _ in range(upsample_factor.bit_length() - 1))
         self.out = glorot_conv(num_filters, 3, 9)
-        self.uses_trunk_kernel = not batch_norm and dtype == torch.bfloat16
-        if self.uses_trunk_kernel:
-            for name, t in zip(TrunkWeights._fields, self._pack()):
-                self.register_buffer(f"trunk_{name}", t, persistent=False)
-            self.register_load_state_dict_post_hook(SRResNet._repack)
+        self.uses_trunk_kernel = (not batch_norm and dtype == torch.bfloat16
+                                  and num_filters == KERNEL_WIDTH)
+        self._packed = None  # (key, the parameters' storage, TrunkWeights)
 
-    def _pack(self):
-        with torch.no_grad():
-            return pack_trunk_weights(
-                (b.conv1.conv.weight, b.conv1.conv.bias, b.act.alpha,
-                 b.conv2.conv.weight, b.conv2.conv.bias) for b in self.blocks)
+    def _block_parameters(self):
+        return [(b.conv1.conv.weight, b.conv1.conv.bias, b.act.alpha, b.conv2.conv.weight,
+                 b.conv2.conv.bias) for b in self.blocks]
 
-    @staticmethod
-    def _repack(module, incompatible_keys):
-        for name, t in zip(TrunkWeights._fields, module._pack()):
-            setattr(module, f"trunk_{name}", t.to(getattr(module, f"trunk_{name}").device))
+    def trunk_parameters(self):
+        """The residual blocks' parameters in ``TrunkFunction``'s order."""
+        return [t for block in self._block_parameters() for t in block]
 
-    def trunk_weights(self):
-        """The packed trunk parameters that the kernel takes."""
-        return TrunkWeights(*(getattr(self, f"trunk_{n}") for n in TrunkWeights._fields))
+    def trunk_weights(self, params=None):
+        """The blocks' parameters as they are now (``params``, as
+        ``trunk_parameters`` gives them), packed for the kernel
+        (``ops.kernels.residual_trunk``), outside autograd. The packing is
+        kept between calls while no parameter was written in place (its
+        version counter) or given new data (its address; the kept key holds
+        the old storage, so no new tensor can take its address meanwhile)."""
+        params = self.trunk_parameters() if params is None else params
+        key = [(p.data_ptr(), None if torch.is_inference(p) else p._version) for p in params]
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                self._packed = (key, [p.detach() for p in params],
+                                pack_trunk_weights(self._block_parameters()))
+        return self._packed[2]
 
     def _trunk(self, h):
         if not self.uses_trunk_kernel:
             for block in self.blocks:
                 h = block(h)
             return h
-        if h.device.type == "cuda" and self.num_filters != KERNEL_WIDTH:
-            raise NotImplementedError(
-                f"the CUDA trunk kernel takes {KERNEL_WIDTH} filters, this model has "
-                f"{self.num_filters}: other widths are ROADMAP.md Queue 2, trunk kernel")
-        return residual_trunk(h.permute(0, 2, 3, 1), self.trunk_weights()).permute(0, 3, 1, 2)
+        params = self.trunk_parameters()
+        out = TrunkFunction.apply(h.permute(0, 2, 3, 1), self.trunk_weights(params), *params)
+        return out.permute(0, 3, 1, 2)
 
     def forward(self, x):
         h = x.permute(0, 3, 1, 2).to(self.dtype)

@@ -8,6 +8,7 @@ from simplesr_tpu_torch.ops.kernels.patches import (
     extract_overlapping_patches_reference,
 )
 from simplesr_tpu_torch.ops.kernels.trunk import (
+    TrunkFunction,
     TrunkWeights,
     pack_trunk_weights,
     residual_trunk,
@@ -17,6 +18,7 @@ from simplesr_tpu_torch.ops.kernels.trunk import (
 WRAPPERS = (residual_trunk, extract_overlapping_patches)
 
 __all__ = [
+    "TrunkFunction",
     "TrunkWeights",
     "pack_trunk_weights",
     "residual_trunk",

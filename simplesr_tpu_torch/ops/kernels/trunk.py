@@ -14,6 +14,9 @@ activations moved, at the bf16 ridge); ``csrc/trunk.cu`` says how its design
 meets that. It takes C = 64 and any H, W, and reads each conv's weights as
 the image that ``swizzle_trunk_weights`` builds here from the logical
 weights, once per weight tensor, where a CPU test can check it.
+
+``residual_trunk`` is the forward-only launcher; ``TrunkFunction`` puts it
+under autograd, as the model calls it.
 """
 
 import ctypes
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from simplesr_tpu_torch.core.dtypes import model_conv_precision
 from simplesr_tpu_torch.ops.kernels import _build
 
 KERNEL_WIDTH = 64
@@ -86,8 +90,7 @@ def _kernel_image(weight):
 
 
 class TrunkWeights(NamedTuple):
-    """Packed trunk parameters, built once per model by
-    ``pack_trunk_weights``.
+    """Packed trunk parameters, as ``pack_trunk_weights`` builds them.
 
     weight: (num_blocks, 2, 9, C_in, C_out) bf16, taps in (dy, dx) raster order.
     b1, b2, alpha: (num_blocks, C) float32.
@@ -103,19 +106,19 @@ def pack_trunk_weights(blocks):
     """Pack residual blocks' parameters for ``residual_trunk``.
 
     ``blocks`` yields (conv1 weight, conv1 bias, PReLU alpha, conv2 weight,
-    conv2 bias) per block, conv weights OIHW (C, C, 3, 3).
+    conv2 bias) per block, conv weights OIHW (C, C, 3, 3). Differentiable:
+    under autograd the packed tensors lead back to the parameters (the cast
+    to bf16 passes its gradient straight through).
     """
-    weights, b1s, b2s, alphas = [], [], [], []
-    for w1, b1, alpha, w2, b2 in blocks:
-        taps = [w.detach().permute(2, 3, 1, 0).reshape(9, w.shape[1], w.shape[0])
-                for w in (w1, w2)]
-        weights.append(torch.stack(taps))
-        b1s.append(b1.detach().float())
-        b2s.append(b2.detach().float())
-        alphas.append(alpha.detach().float())
-    return TrunkWeights(torch.stack(weights).to(torch.bfloat16).contiguous(),
-                        torch.stack(b1s).contiguous(), torch.stack(b2s).contiguous(),
-                        torch.stack(alphas).contiguous())
+    blocks = [tuple(block) for block in blocks]
+    if not blocks:
+        raise ValueError("pack_trunk_weights needs at least one block")
+    n, (c_out, c_in) = len(blocks), blocks[0][0].shape[:2]
+    convs = torch.stack([w for block in blocks for w in (block[0], block[3])])
+    weight = convs.to(torch.bfloat16).permute(0, 3, 4, 2, 1).reshape(n, 2, 9, c_in, c_out)
+    b1, alpha, b2 = (torch.stack([block[i] for block in blocks]).float().contiguous()
+                     for i in (1, 2, 4))
+    return TrunkWeights(weight.contiguous(), b1, b2, alpha)
 
 
 def _oihw(taps):
@@ -142,11 +145,13 @@ def residual_trunk(x, weights):
     """Run the residual trunk on (B, H, W, C) bf16 NHWC activations.
 
     A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (C must be 64) or raises. Forward only: an input that requires grad is
-    refused.
+    (C must be 64) or raises. Forward only, on both: the result carries no
+    autograd graph, and on CUDA an input that requires grad is refused
+    (``TrunkFunction`` is the differentiable trunk).
     """
     if x.device.type == "cpu":
-        return residual_trunk_reference(x, weights)
+        with torch.no_grad():
+            return residual_trunk_reference(x, weights)
     if x.device.type != "cuda":
         raise ValueError(f"residual_trunk: unsupported device {x.device}")
     if x.requires_grad:
@@ -188,3 +193,49 @@ def residual_trunk(x, weights):
 
 
 residual_trunk.launches = 0
+
+
+def _blocks(params):
+    """A flat (w1, b1, alpha, w2, b2) * num_blocks sequence, block by block."""
+    if len(params) % 5:
+        raise ValueError(f"trunk parameters come in fives per block, got {len(params)}")
+    return [params[i:i + 5] for i in range(0, len(params), 5)]
+
+
+class TrunkFunction(torch.autograd.Function):
+    """The residual trunk under autograd: ``TrunkFunction.apply(x, weights,
+    *params)`` with (B, H, W, C) bf16 NHWC ``x``, the blocks' (conv1 weight,
+    conv1 bias, PReLU alpha, conv2 weight, conv2 bias) in order, and
+    ``weights`` those parameters as they are now, packed
+    (``pack_trunk_weights``; None to pack them here).
+
+    Forward: runs ``residual_trunk`` on the packed weights (the kernel on
+    CUDA, the plain version on the CPU). It keeps only ``x`` and the
+    parameters for the backward, not the trunk's 2 * num_blocks activation
+    maps.
+
+    Backward: recomputes the plain version from them under autograd and
+    returns its gradients, its float32 convolutions at the model's precision
+    (``core.dtypes.model_conv_precision``). It launches no kernel: the TPU
+    kernel has no VJP (the JAX package trains through flax ResBlocks), so its
+    backward is PyTorch's convolutions.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weights, *params):
+        ctx.save_for_backward(x, *params)
+        if weights is None:
+            weights = pack_trunk_weights(_blocks(params))
+        return residual_trunk(x.detach(), weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[2:]
+        with torch.enable_grad(), model_conv_precision(grad_out.device):
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+            out = residual_trunk_reference(leaves[0], pack_trunk_weights(_blocks(leaves[1:])))
+            grads = iter(torch.autograd.grad(out, [t for t in leaves if t.requires_grad],
+                                             grad_out))
+        grads = [next(grads) if t.requires_grad else None for t in leaves]
+        return (grads[0], None, *grads[1:])

@@ -1,6 +1,16 @@
-"""Model files: reading simplesr_tpu's format and converting its variables."""
+"""Training and model files: ``SRModel`` (ResNet mode) and ``Generator``,
+the optimizers, metrics and early stopping, and reading and writing
+simplesr_tpu's model format."""
 
-from simplesr_tpu_torch.train.convert import from_flax_variables
-from simplesr_tpu_torch.train.serialization import MODEL_EXT, load_model, load_payload
+from simplesr_tpu_torch.train.convert import from_flax_variables, to_flax_variables
+from simplesr_tpu_torch.train.serialization import (MODEL_EXT, load_model, load_payload,
+                                                    save_model)
+from simplesr_tpu_torch.train.early_stopping import EarlyStopping
+from simplesr_tpu_torch.train.generator import Generator
+from simplesr_tpu_torch.train.metrics import MeanMetric, MetricBundle
+from simplesr_tpu_torch.train.optimizers import build_optimizer, build_schedule
+from simplesr_tpu_torch.train.sr_model import SRModel
 
-__all__ = ["from_flax_variables", "load_model", "load_payload", "MODEL_EXT"]
+__all__ = ["from_flax_variables", "to_flax_variables", "load_model", "load_payload",
+           "save_model", "MODEL_EXT", "EarlyStopping", "Generator", "MeanMetric",
+           "MetricBundle", "build_optimizer", "build_schedule", "SRModel"]

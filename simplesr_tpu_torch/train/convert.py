@@ -1,9 +1,13 @@
-"""Carrying simplesr_tpu's (flax) variables over to the port's modules.
+"""Carrying variables between simplesr_tpu's (flax) layout and the port's
+modules.
 
 ``from_flax_variables`` maps the nested ``{"params", "batch_stats"}`` tree of
 an SRResNet to a ``state_dict`` of ``models.SRResNet``: module names follow a
 fixed table, conv kernels go from HWIO to OIHW, BatchNorm's scale / bias /
 mean / var become weight / bias / running_mean / running_var.
+``to_flax_variables`` is its inverse, with every map's keys in sorted order
+(``batch_stats`` before ``params``), as ``jax.device_get`` hands a tree back
+and so as simplesr_tpu's ``save_model`` writes it.
 """
 
 import re
@@ -78,3 +82,68 @@ def from_flax_variables(variables):
     for key in [k for k in state if k.endswith(".running_mean")]:
         state[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return state
+
+
+_BATCH_STATS = {"running_mean", "running_var"}
+
+
+def _numpy_or_tensor(t):
+    """A CPU copy: numpy where numpy has the dtype, else (bfloat16) a tensor."""
+    t = t.detach().cpu().contiguous()
+    return t.clone() if t.dtype == torch.bfloat16 else t.numpy().copy()
+
+
+def _flax_top(parts):
+    """The flax name and kind of the top-level module that a split
+    state-dict key starts with, and the rest of the key."""
+    for pattern, torch_name, kind in _TOP:
+        if torch_name.endswith(r".\1"):  # an indexed module: blocks.i, upsample.i
+            if parts[0] == torch_name[:-3] and len(parts) > 1 and parts[1].isdigit():
+                return pattern.replace(r"(\d+)", parts[1]), kind, parts[2:]
+        elif parts[0] == torch_name:
+            return pattern, kind, parts[1:]
+    return None, None, None
+
+
+def _flax_path(name):
+    """A state-dict key -> (collection, path of flax names), or None for a
+    key that flax does not keep (BatchNorm's num_batches_tracked)."""
+    if name.endswith(".num_batches_tracked"):
+        return None
+    top, kind, rest = _flax_top(name.split("."))
+    path = [top]
+    while top is not None and kind not in _LEAVES and rest:
+        flax_child = {t: (f, k) for f, (t, k) in _CHILDREN[kind].items()}.get(rest[0])
+        if flax_child is None:
+            break
+        path.append(flax_child[0])
+        kind, rest = flax_child[1], rest[1:]
+    leaves = {v: k for k, v in _LEAVES.get(kind, {}).items()}
+    if top is None or len(rest) != 1 or rest[0] not in leaves:
+        raise KeyError(f"unknown SRResNet parameter {name!r}")
+    return ("batch_stats" if rest[0] in _BATCH_STATS else "params"), path + [leaves[rest[0]]]
+
+
+def _sorted(tree):
+    return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+
+
+def to_flax_variables(state_dict):
+    """The port's SRResNet ``state_dict`` -> flax's ``{"batch_stats": ...,
+    "params": ...}`` tree (the former only when there is BatchNorm),
+    leaves as CPU numpy arrays (bfloat16 ones as tensors), conv kernels HWIO."""
+    variables = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        where = _flax_path(name)
+        if where is None:
+            continue
+        collection, path = where
+        if name.endswith("conv.weight") or name == "out.weight":
+            t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        node = variables[collection]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _numpy_or_tensor(t)
+    if not variables["batch_stats"]:
+        del variables["batch_stats"]
+    return _sorted(variables)

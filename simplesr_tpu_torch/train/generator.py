@@ -1,0 +1,173 @@
+"""Generator wrapper, as simplesr_tpu.train.generator: the SRResNet module,
+its loss functors and metric bookkeeping.
+
+Same constructor surface, ``srresnet`` factory, ``module_config`` (the config
+a model file stores) and metric names ("generator_loss", one mean per loss
+functor, ``weighted_`` variants) as the JAX package. The module lives on one
+device and ``SRModel`` trains its parameters in place; ``variables`` gives
+them in flax's layout. Parameters are initialised from ``seed`` with
+glorot-uniform kernels, zero biases and zero PReLU slopes, as flax does,
+but from torch's generator: the same seed gives other numbers than JAX's.
+The RRDB and GAN factories, and ``pretrained_model`` (the warm start of a
+GAN from a pixel-trained generator), come with that family (ROADMAP.md,
+Queue 1).
+"""
+
+import torch
+
+from simplesr_tpu_torch.core.device import resolve_device
+from simplesr_tpu_torch.core.dtypes import dtype_from_name
+from simplesr_tpu_torch.losses import MeanSquaredError, adapt_generator_loss
+from simplesr_tpu_torch.models import build_generator_model
+from simplesr_tpu_torch.train import serialization
+from simplesr_tpu_torch.train.convert import to_flax_variables
+from simplesr_tpu_torch.train.metrics import MetricBundle
+
+
+class Generator:
+    def __init__(self,
+                 upsample_factor,
+                 architecture,
+                 loss_functions,
+                 num_blocks=16,
+                 num_dense_blocks=3,
+                 num_filters=64,
+                 num_convs=4,
+                 kernel_size=3,
+                 residual_scaling=0.2,
+                 kernel_initializer=None,
+                 batch_norm=False,
+                 input_dims=(None, None),
+                 pretrained_model_path=None,
+                 dtype=None,
+                 growth_channels=None,
+                 remat=False,
+                 seed=0,
+                 device="cuda"):
+        del kernel_initializer, input_dims  # fixed initialisers; no shapes to trace
+        self._architecture = architecture
+        self._upsample_factor = upsample_factor
+        if loss_functions is None or (isinstance(loss_functions, list) and not loss_functions):
+            raise ValueError("no loss function for generator supplied")
+        if not isinstance(loss_functions, list):
+            loss_functions = [loss_functions]
+        self._loss_functions = [adapt_generator_loss(f) for f in loss_functions]
+
+        names = ["generator_loss"]
+        for idx, f in enumerate(self._loss_functions):
+            name = getattr(f, "name", f"loss_function_{idx}")
+            names.append(name)
+            if getattr(f, "weighted", False):
+                names.append(f"weighted_{name}")
+        self._batch_metrics = MetricBundle(names)
+        self._epoch_metrics_train = MetricBundle(names)
+        self._epoch_metrics_valid = MetricBundle(names)
+
+        self._dtype = dtype_from_name(dtype)
+        self._num_blocks = num_blocks
+        self._num_dense_blocks = num_dense_blocks
+        self._num_filters = num_filters
+        self._num_convs = num_convs
+        self._kernel_size = kernel_size
+        self._residual_scaling = residual_scaling
+        self._growth_channels = growth_channels
+        self._remat = remat  # kept for module_config; the port's trunk recomputes anyway
+        self._batch_norm = batch_norm
+
+        device = resolve_device(device)
+        if pretrained_model_path is not None:
+            self._module = serialization.load_model(pretrained_model_path, device=device)
+        else:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                self._module = build_generator_model(
+                    upsample_factor=upsample_factor, architecture=architecture,
+                    num_blocks=num_blocks, num_filters=num_filters, kernel_size=kernel_size,
+                    residual_scaling=residual_scaling, batch_norm=batch_norm,
+                    num_convs=num_convs, num_dense_blocks=num_dense_blocks, dtype=dtype,
+                    growth_channels=growth_channels, remat=remat, device="cpu")
+            self._module = self._module.to(device)
+
+    # ------------------------------------------------------------ access
+
+    def model(self):
+        """The generator module."""
+        return self._module
+
+    @property
+    def device(self):
+        return next(self._module.parameters()).device
+
+    def to(self, device):
+        self._module = self._module.to(resolve_device(device))
+        return self
+
+    @property
+    def variables(self):
+        """The module's variables in flax's layout (CPU copies)."""
+        return to_flax_variables(self._module.state_dict())
+
+    def module_config(self):
+        return dict(
+            upsample_factor=self._upsample_factor, architecture=self._architecture,
+            num_blocks=self._num_blocks, num_dense_blocks=self._num_dense_blocks,
+            num_filters=self._num_filters, num_convs=self._num_convs,
+            kernel_size=self._kernel_size, residual_scaling=self._residual_scaling,
+            batch_norm=self._batch_norm,
+            growth_channels=self._growth_channels,
+            remat=self._remat,
+            dtype=str(self._dtype).removeprefix("torch."))
+
+    def batch_metrics(self):
+        return self._batch_metrics
+
+    def epoch_metrics(self, train=True):
+        return self._epoch_metrics_train if train else self._epoch_metrics_valid
+
+    def reset_epoch_metrics(self):
+        self._epoch_metrics_train.reset()
+        self._epoch_metrics_valid.reset()
+
+    def reset_batch_metrics(self):
+        self._batch_metrics.reset()
+
+    # ------------------------------------------------------------ compute
+
+    def generate(self, lr_batch):
+        """SR a batch (NHWC in [0, 1], a tensor or an array) with the current
+        parameters, in eval mode, on the module's device."""
+        x = torch.as_tensor(lr_batch, dtype=torch.float32).to(self.device)
+        self._module.eval()
+        with torch.inference_mode():
+            return self._module(x)
+
+    def calculate_loss(self, sr_batch, hr_batch, sr_critic, hr_critic):
+        """Sum over the loss functors -> (total, metrics)."""
+        total = 0.0
+        metrics = {}
+        for f in self._loss_functions:
+            loss, m = f(hr_batch, sr_batch, hr_critic, sr_critic)
+            total = total + loss
+            metrics.update(m)
+        metrics["generator_loss"] = total
+        return total, metrics
+
+    def accumulate_metrics(self, metrics, train=True):
+        self._batch_metrics.update(metrics)
+        self.epoch_metrics(train).update(metrics)
+
+    # ------------------------------------------------------------ factories
+
+    @staticmethod
+    def srresnet(upsample_factor, loss_function=None, num_blocks=16, num_filters=64,
+                 kernel_size=3, batch_norm=True, input_dims=(None, None),
+                 pretrained_model_path=None, **kw):
+        """SRResNet, pixel MSE by default."""
+        if loss_function is None:
+            loss_function = [MeanSquaredError(weighted=False, loss_weight=1.0)]
+        return Generator(
+            upsample_factor=upsample_factor, architecture="srresnet",
+            loss_functions=loss_function, num_blocks=num_blocks,
+            num_filters=num_filters, kernel_size=kernel_size,
+            batch_norm=batch_norm, input_dims=input_dims,
+            pretrained_model_path=pretrained_model_path, **kw)

@@ -1,17 +1,30 @@
-"""Reading simplesr_tpu's model files, as simplesr_tpu.train.serialization.
+"""Model files, as simplesr_tpu.train.serialization: the format that both
+packages read and write.
 
 A model file is one msgpack map ``{"config": json, "variables": bytes}``,
 where the variables are flax's msgpack encoding of the
-``{"params": ..., "batch_stats": ...}`` tree. ``save_model`` and ``zoo:``
-specs are not ported yet (ROADMAP.md, Queue 1).
+``{"params": ..., "batch_stats": ...}`` tree. ``save_model`` writes the
+bytes that flax writes for the same tree. ``zoo:`` specs are not ported yet
+(ROADMAP.md, Queue 1).
 """
 
 import json
+import os
 
-from simplesr_tpu_torch.train._msgpack import unpackb
+from simplesr_tpu_torch.train._msgpack import packb, unpackb
 from simplesr_tpu_torch.train.convert import from_flax_variables
 
 MODEL_EXT = ".msgpack"
+
+
+def save_model(module_config, variables, path):
+    """Write ``{config, variables}`` to ``path`` (directories created).
+    ``variables`` is a flax-layout tree of numpy arrays or CPU tensors, as
+    ``convert.to_flax_variables`` gives it."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    payload = {"config": json.dumps(module_config), "variables": packb(variables)}
+    with open(path, "wb") as f:
+        f.write(packb(payload))
 
 
 def load_payload(path):

@@ -144,7 +144,6 @@ def test_model_on_cuda_matches_cpu(cuda):
     with torch.no_grad():
         for block in cpu.blocks:
             block.act.alpha.uniform_(0, 0.3)
-    cpu.load_state_dict(cpu.state_dict())  # packs the trunk weights again
     gpu = build_generator_model(2, num_blocks=2, num_filters=64, batch_norm=False,
                                 dtype="bfloat16", device=cuda)
     gpu.load_state_dict(cpu.state_dict())
@@ -158,14 +157,82 @@ def test_model_on_cuda_matches_cpu(cuda):
     assert (got - ref).abs().max().item() < 5e-2  # bf16 convolutions of two libraries
 
 
-def test_width_other_than_64_raises_on_cuda(cuda):
+@pytest.mark.parametrize("width", [32, 128])
+def test_width_other_than_64_matches_cpu(cuda, width):
+    """Widths the kernel does not take run their ResBlocks on CUDA, as on
+    the CPU, and launch no trunk kernel."""
     from simplesr_tpu_torch.models import build_generator_model
 
-    model = build_generator_model(2, num_blocks=1, num_filters=32, batch_norm=False,
-                                  dtype="bfloat16", device=cuda)
-    with pytest.raises(NotImplementedError):
-        with torch.inference_mode():
-            model(torch.rand((1, 8, 8, 3), device=cuda))
+    torch.manual_seed(0)
+    cpu = build_generator_model(2, num_blocks=2, num_filters=width, batch_norm=False,
+                                dtype="bfloat16", device="cpu")
+    with torch.no_grad():
+        for block in cpu.blocks:
+            block.act.alpha.uniform_(0, 0.3)
+    gpu = build_generator_model(2, num_blocks=2, num_filters=width, batch_norm=False,
+                                dtype="bfloat16", device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (2, 20, 28, 3))
+                         .astype(np.float32))
+    before = residual_trunk.launches
+    with torch.inference_mode():
+        got = gpu(x.to(cuda)).cpu()
+        ref = cpu(x)
+    assert residual_trunk.launches == before
+    assert (got - ref).abs().max().item() < 5e-2  # bf16 convolutions of two libraries
+
+
+def _seeded_model(device):
+    from simplesr_tpu_torch.models import build_generator_model
+
+    torch.manual_seed(0)
+    model = build_generator_model(4, num_blocks=2, num_filters=64, batch_norm=False,
+                                  dtype="bfloat16", device="cpu")
+    with torch.no_grad():
+        for block in model.blocks:
+            block.act.alpha.uniform_(0, 0.3)
+    return model.to(device).train()
+
+
+def test_trunk_function_gradients_match_plain(cuda):
+    """Gradients through TrunkFunction (the kernel's forward, the plain
+    version recomputed in the backward) against autograd straight through
+    the plain version, per parameter tensor."""
+    model = _seeded_model(cuda)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.uniform(0, 1, (4, 24, 24, 3)).astype(np.float32)).to(cuda)
+    hr = torch.from_numpy(rng.uniform(-1, 1, (4, 96, 96, 3)).astype(np.float32)).to(cuda)
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        loss = ((model(x) - hr) ** 2).mean()
+        return loss, torch.autograd.grad(loss, params)
+
+    before = residual_trunk.launches
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    assert residual_trunk.launches == before + 1  # the forward only
+    model._trunk = lambda h: residual_trunk_reference(
+        h.permute(0, 2, 3, 1), pack_trunk_weights(model._block_parameters())).permute(0, 3, 1, 2)
+    loss_p, grads_p = loss_and_grads()
+    # bf16: kernel and plain forward round a few activations apart, which
+    # reaches every gradient; see chip_smoke.py, TRAIN_GRAD_FRO_TOL
+    assert abs(loss_k.item() - loss_p.item()) < 1e-2 * abs(loss_p.item())
+    for a, b in zip(grads_k, grads_p):
+        assert ((a - b).norm() / b.norm()).item() < 3e-2
+
+
+def test_grad_enabled_call_equals_inference_mode(cuda):
+    model = _seeded_model(cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(6).uniform(0, 1, (2, 17, 23, 3))
+                         .astype(np.float32)).to(cuda)
+    before = residual_trunk.launches
+    with_grad = model(x)
+    with torch.inference_mode():
+        no_grad = model(x)
+    assert residual_trunk.launches == before + 2
+    assert with_grad.requires_grad
+    assert torch.equal(with_grad.detach(), no_grad)
 
 
 @pytest.mark.parametrize("global_tf32", [False, True])
@@ -189,3 +256,24 @@ def test_output_conv_precision_ignores_global_flag(cuda, global_tf32):
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     assert torch.equal(got, want)
+
+
+def test_kernel_images_do_not_pile_up_in_training(cuda):
+    """Each step packs new trunk weights; their swizzled images are dropped
+    with them, so the image cache does not grow step by step."""
+    from simplesr_tpu_torch.ops.kernels.trunk import _images
+    from simplesr_tpu_torch.train import Generator, SRModel
+
+    gen = Generator.srresnet(4, num_blocks=2, num_filters=64, batch_norm=False, device=cuda)
+    model = SRModel("resnet", gen, "Adam", {"learning_rate": 1e-4}, device=cuda)
+    rng = np.random.default_rng(7)
+    lr = rng.uniform(0, 1, (2, 12, 12, 3)).astype(np.float32)
+    hr = rng.uniform(-1, 1, (2, 48, 48, 3)).astype(np.float32)
+    model.train_step(lr, hr)
+    held = len(_images)
+    before = residual_trunk.launches
+    for _ in range(5):
+        model.train_step(lr, hr)
+    torch.cuda.synchronize()
+    assert residual_trunk.launches == before + 5
+    assert len(_images) <= held
