@@ -50,7 +50,32 @@ plain PyTorch version, in one process, with no arguments:
      optimizer parts, HR MPix/s, peak memory, and the same step with the
      trunk in plain autograd (cuDNN, activations stored); for each, a
      ``torch.profiler`` trace of 3 steps (device busy time, idle share, the
-     kernels that take the most device time).
+     kernels that take the most device time), taken after phase 8's timings;
+  8. training from a YAML file: the production recipe
+     (examples/training/srresnet_x4_paired_production.yaml), read by the
+     port's YAML reader and written with these cuts, each printed in
+     ``reduced``: the gallery PNGs as data, a temporary results directory,
+     2 epochs, seed 0, and no ``paired_train``; run in-process through
+     ``tools.train.main`` (ConfigUtil.from_yaml, DataPipeline, SRModel.init,
+     run_training), with the launch counts set to 0 just before and read
+     just after. Checks: exit 0; the save-dir tree and file names of the
+     JAX package's run; finite histories and a lower epoch-mean loss in
+     epoch 2; the ``_best`` file's output on a gallery crop bit-equal to
+     the trained module's; one trunk launch per ``train_step``,
+     ``validation_step`` and ``generate`` call (counted by the phase);
+     ``--resume`` with 3 epochs starts at epoch 2 with the first run's
+     histories and early-stopping state and runs one epoch; a run that gets
+     SIGTERM after 10 steps exits 75 and leaves a resume point; the
+     pipeline on the card against the CPU for the same config and seed (3
+     training batches: HR bit-equal, LR max abs < 1e-4). Printed, not
+     gated: seconds per epoch (from ``before_epoch`` to ``after_epoch``,
+     validation and plots included), train steps per second, HR MPix/s end
+     to end (pipeline included), the share of each epoch spent waiting on
+     the pipeline's generators, the time to decode the 16 PNGs, peak
+     memory, one epoch of the pipeline alone and of the bare steps on its
+     batches, and a ``torch.profiler`` trace of 10 steps of the loop, taken
+     last (a profiler session slows the launches after it, so phase 7's
+     traces wait until phase 8's timings are done).
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -63,6 +88,8 @@ import contextlib
 import copy
 import faulthandler
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -132,6 +159,26 @@ ROUTE_MAX_ABS_TOL = 5e-2  # whole upscale on [-1, 1]: bf16 trunk differences thr
 ROUTE_MEAN_ABS_TOL = 2e-3
 ENGINE_MAX_ABS_TOL = 5e-2  # batched vs one-shot: cuDNN may pick other algorithms per batch
 PNG_MAX_LEVELS = 1  # a written PNG vs the route's output, truncated to uint8
+# Phase 8: the production recipe from its YAML file, cut to the gallery.
+RECIPE = ROOT / "examples/training/srresnet_x4_paired_production.yaml"
+YAML_EPOCHS = 2
+PREEMPT_AFTER_STEPS = 10
+PIPELINE_LR_TOL = 1e-4  # LR on [0, 1], card vs CPU: the resize's float32 sums
+EXIT_PREEMPTED = 75
+# The save-dir tree of the JAX package's run_training for 2 epochs, without
+# the checkpoints' contents (orbax there, torch.save here) and the
+# TensorBoard event files (tests/test_torch_training_loop.py holds the two
+# trees equal on the CPU).
+JAX_RUN_TREE = {
+    ".", "checkpoints", "checkpoints/resnet_resume_meta.json", "config_logfile",
+    "json_dump", "json_dump/resnet_train_batch_history.json",
+    "json_dump/resnet_train_epoch_history.json", "json_dump/resnet_valid_batch_history.json",
+    "json_dump/resnet_valid_epoch_history.json", "log", "logs", "logs/train",
+    "logs/train/batch", "logs/train/epoch", "logs/val", "logs/val/batch", "logs/val/epoch",
+    "models", "models/resnet_gen_1.msgpack", "models/resnet_gen_2.msgpack",
+    "models/resnet_gen_best.msgpack", "perf_logfile", "pics", "pics/test", "pics/train",
+    "pics/train/resnet", "pics/train/resnet/00002_000.png", "pics/val", "pics/val/resnet",
+    "pics/val/resnet/00002_000.png", "results_logfile"}
 
 
 def log(phase, **result):
@@ -530,18 +577,315 @@ def train_phase(dev, work, gen, launches_by_path, card):
         result.update(step_times("plain_autograd"))
     finally:
         module.uses_trunk_kernel = True
-    # the profiler last, after every timing: its hooks may slow later launches
-    traces = {}
-    for label, kernel in (("trunk_function", True), ("plain_autograd", False)):
-        module.uses_trunk_kernel = kernel
-        try:
-            it = iter(timed)
-            traces[label] = profile_steps(lambda: model.train_step(*next(it)))
-        finally:
-            module.uses_trunk_kernel = True
     log(7, **result, trunk_function_parts_ms=parts, backward_trunk_launches=0,
         batch=[TRAIN_BATCH, TRAIN_HR, TRAIN_HR, 3], runs=TRAIN_STEPS, card=card)
-    log(7, profiler_3_steps=traces, card=card)
+
+    def profile():
+        """The profiler, run after every timing of the script: its hooks
+        slow the launches that follow it."""
+        traces = {}
+        for label, kernel in (("trunk_function", True), ("plain_autograd", False)):
+            module.uses_trunk_kernel = kernel
+            try:
+                it = iter(timed)
+                traces[label] = profile_steps(lambda: model.train_step(*next(it)))
+            finally:
+                module.uses_trunk_kernel = True
+        log(7, profiler_3_steps=traces, card=card)
+
+    return profile
+
+
+@contextlib.contextmanager
+def patched(owner, name, make):
+    """``owner.name`` replaced by ``make(original)`` inside the block."""
+    original = getattr(owner, name)
+    setattr(owner, name, make(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def run_tree(root):
+    """A run's relative paths, as JAX_RUN_TREE lists them."""
+    out = set()
+    for dirpath, _, filenames in os.walk(root):
+        rel = os.path.relpath(dirpath, root)
+        if rel.startswith("checkpoints" + os.sep):
+            continue
+        out.add(rel)
+        if not rel.startswith("logs"):
+            out.update(os.path.normpath(os.path.join(rel, f)) for f in filenames)
+    return out
+
+
+def yaml_phase(dev, work, launches_by_path, card):
+    """Phase 8: training from a YAML file (see the docstring)."""
+    import simplesr_tpu_torch.train as train_pkg
+    from simplesr_tpu_torch.config import _yaml
+    from simplesr_tpu_torch.data import DataPipeline
+    from simplesr_tpu_torch.data.png import read_rgb_u8
+    from simplesr_tpu_torch.ops.kernels import residual_trunk
+    from simplesr_tpu_torch.tools import train as train_tool
+    from simplesr_tpu_torch.train import SRModel, load_model
+
+    start("8 training from a YAML file: the production recipe")
+    t_phase = time.perf_counter()
+    spec = _yaml.load(RECIPE)
+    gallery = ROOT / "data/corpus/gallery"
+    reduced = {"train_data_paths": f"{spec['general']['train_data_paths']} -> {gallery} "
+                                   "(16 PNGs; the recipe's DIV2K is not in the repo)",
+               "results_save_path": "a temporary directory",
+               "num_epochs": f"{spec['general']['num_epochs']} -> {YAML_EPOCHS}",
+               "random_seed": "unset -> 0",
+               "paired_train": f"{spec['general'].pop('paired_train')} -> removed (the TPU's "
+                               "packed layout is not ported; it is exact, so the loss and "
+                               "gradients are those of the unpaired layout)"}
+    spec["general"].update(train_data_paths=str(gallery), num_epochs=YAML_EPOCHS,
+                           random_seed=0, results_save_path=str(work / "yaml_run"))
+    kept = {k: spec["general"][k] for k in ("batch_size", "crop_size", "num_crops",
+                                            "augmentations", "train_val_split", "scale")}
+    log(8, recipe=str(RECIPE.relative_to(ROOT)), reduced=reduced, kept=kept,
+        generator=spec["model"]["generator"], optimizer=spec["model"]["generator_optimizer"],
+        optimizer_config=spec["model"]["generator_optimizer_config"])
+
+    def write(name, **general):
+        path = work / name
+        run = copy.deepcopy(spec)
+        run["general"].update(general)
+        path.write_text(_yaml.dump(run))
+        return path
+
+    calls = {"train_step": 0, "validation_step": 0, "generate": 0}
+    seen = {}  # the run's objects and timings, filled by the wrappers
+    epochs = []  # (start, end) of each epoch on the host clock
+    waits = []  # (start, seconds) of each call into the pipeline's generators
+
+    def counting(name):
+        def make(original):
+            def wrapper(self, *a, **k):
+                calls[name] += 1
+                return original(self, *a, **k)
+            return wrapper
+        return make
+
+    def timed_generator(original):
+        def wrapper(self, *a, **k):
+            it = iter(original(self, *a, **k))
+
+            def gen():
+                while True:
+                    t = time.perf_counter()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        waits.append((t, time.perf_counter() - t))
+                        return
+                    waits.append((t, time.perf_counter() - t))
+                    yield item
+            return gen()
+        return wrapper
+
+    def capture_run(original):
+        def wrapper(conf, pipeline, sr_model, **k):
+            seen.update(conf=conf, pipeline=pipeline, model=sr_model)
+            return original(conf, pipeline, sr_model, **k)
+        return wrapper
+
+    def epoch_clock(which):
+        def make(original):
+            def wrapper(self, *a, **k):
+                if which == "before":
+                    epochs.append([time.perf_counter(), None])
+                    return original(self, *a, **k)
+                torch.cuda.synchronize()
+                epochs[-1][1] = time.perf_counter()
+                return original(self, *a, **k)
+            return wrapper
+        return make
+
+    def resume_capture(original):
+        def wrapper(self):
+            seen["resumed_at"] = original(self)
+            seen["resumed_histories"] = copy.deepcopy(self.histories()["train_epoch"])
+            seen["resumed_early_stop"] = self._early_stopping_util.state_dict()
+            return seen["resumed_at"]
+        return wrapper
+
+    instruments = [(SRModel, "train_step", counting("train_step")),
+                   (SRModel, "validation_step", counting("validation_step")),
+                   (SRModel, "generate", counting("generate")),
+                   (SRModel, "before_epoch", epoch_clock("before")),
+                   (SRModel, "after_epoch", epoch_clock("after")),
+                   (SRModel, "resume_training", resume_capture),
+                   (DataPipeline, "train_batch_generator", timed_generator),
+                   (DataPipeline, "validation_batch_generator", timed_generator),
+                   (train_pkg, "run_training", capture_run)]
+
+    def instrumented(run):
+        with contextlib.ExitStack() as stack:
+            for owner, name, make in instruments:
+                stack.enter_context(patched(owner, name, make))
+            return run()
+
+    t = time.perf_counter()
+    decoded = [read_rgb_u8(p) for p in sorted(gallery.glob("*.png"))]
+    decode_s = time.perf_counter() - t
+
+    # the run
+    first_yaml = write("run.yaml")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    code, launches = counted(lambda: instrumented(lambda: train_tool.main([str(first_yaml)])))
+    run_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    launches_by_path["run_training_yaml_x2_epochs"] = launches
+    conf, pipeline, model = seen["conf"], seen["pipeline"], seen["model"]
+    first_calls, first_epochs, first_waits = dict(calls), list(epochs), list(waits)
+    n_train = len(pipeline.train_imgs)
+    per_epoch = -(-n_train * conf.num_crops * (1 + len(conf.augmentations)) // conf.batch_size)
+    val_per_epoch = -(-len(pipeline.val_imgs) * conf.num_crops // conf.batch_size)
+    # generate: test_and_plot of one train and one validation batch after
+    # epoch 2, and the final evaluation's validation batches
+    expected = {"train_step": YAML_EPOCHS * per_epoch,
+                "validation_step": YAML_EPOCHS * val_per_epoch, "generate": 2 + val_per_epoch}
+    tree = run_tree(conf.save_path)
+    histories = model.histories()
+    values = [float(v) for h in histories.values() for vs in h.values() for v in vs]
+    epoch_loss = histories["train_epoch"]["generator_loss"]
+    epoch_s = [b - a for a, b in first_epochs]
+    steps_per_s = [per_epoch / s for s in epoch_s]
+    epoch_wait_s = [sum(d for t, d in first_waits if a <= t < b) for a, b in first_epochs]
+    result = {"exit": code, "launches": launches, "calls": first_calls, "expected": expected,
+              "split": [n_train, len(pipeline.val_imgs)], "epoch_loss": epoch_loss,
+              "run_s": run_s, "epoch_s": epoch_s, "train_steps_per_s": steps_per_s,
+              "hr_mpix_per_s_end_to_end": [conf.batch_size * conf.crop_size[0]
+                                           * conf.crop_size[1] * per_epoch / 1e6 / s
+                                           for s in epoch_s],
+              "pipeline_wait_share": sum(epoch_wait_s) / sum(epoch_s),
+              "pipeline_wait_share_per_epoch": [w / s for w, s in zip(epoch_wait_s, epoch_s)],
+              "decode_16_pngs_s": decode_s, "decoded_mpix": sum(d.size for d in decoded) / 3e6,
+              "peak_mem_bytes": peak, "save_dir_tree_as_jax": tree == JAX_RUN_TREE}
+    log(8, check="the run", **result, card=card)
+    if code != 0:
+        raise AssertionError(f"tools.train.main returned {code}")
+    if tree != JAX_RUN_TREE:
+        raise AssertionError(f"save-dir tree differs from the JAX package's: "
+                             f"{sorted(tree ^ JAX_RUN_TREE)}")
+    if not (all(np.isfinite(values)) and len(epoch_loss) == YAML_EPOCHS
+            and epoch_loss[1] < epoch_loss[0]):
+        raise AssertionError(f"histories: finite {all(np.isfinite(values))}, "
+                             f"epoch losses {epoch_loss}")
+    if first_calls != expected or launches["trunk"] != sum(expected.values()) \
+            or launches["patches"] != 0:
+        raise AssertionError(f"launches {launches} for calls {first_calls}, "
+                             f"expected calls {expected}")
+
+    # the _best file against the module that trained it
+    crop = torch.from_numpy(decoded[2][:48, :64].astype(np.float32) / 255.0)[None].to(dev)
+    best = Path(conf.model_dir) / "resnet_gen_best.msgpack"
+    got = model.generate(crop)
+    with torch.inference_mode():
+        ref = load_model(best, device=dev)(crop)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"_best file vs generate: {(got - ref).abs().max().item()}")
+
+    # resume with a third epoch
+    saved_history = copy.deepcopy(histories["train_epoch"])
+    saved_early = model._early_stopping_util.state_dict()
+    for key in calls:
+        calls[key] = 0
+    epochs.clear()
+    resume_yaml = write("resume.yaml", num_epochs=YAML_EPOCHS + 1)
+    code = instrumented(lambda: train_tool.main([str(resume_yaml), "--resume"]))
+    resumed = seen["model"]
+    log(8, check="--resume with 3 epochs", exit=code, resumed_at=seen["resumed_at"],
+        epochs_run=len(epochs), calls=dict(calls),
+        histories_as_first_run=seen["resumed_histories"] == saved_history,
+        early_stop=seen["resumed_early_stop"], same_dir=seen["conf"].save_path == conf.save_path)
+    if not (code == 0 and seen["resumed_at"] == YAML_EPOCHS and len(epochs) == 1
+            and calls["train_step"] == per_epoch and seen["conf"].save_path == conf.save_path
+            and seen["resumed_histories"] == saved_history
+            and seen["resumed_early_stop"] == saved_early
+            and len(resumed.histories()["train_epoch"]["generator_loss"]) == YAML_EPOCHS + 1):
+        raise AssertionError("resume did not continue the run at its third epoch")
+
+    # preemption: SIGTERM after 10 steps of the first epoch
+    steps = [0]
+
+    def preempting(original):
+        def wrapper(self, *a, **k):
+            out = original(self, *a, **k)
+            steps[0] += 1
+            if steps[0] == PREEMPT_AFTER_STEPS:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        return wrapper
+
+    preempt_yaml = write("preempt.yaml", results_save_path=str(work / "yaml_preempt"))
+    handler = signal.getsignal(signal.SIGTERM)
+    with patched(SRModel, "train_step", preempting):
+        code = instrumented(lambda: train_tool.main([str(preempt_yaml)]))
+    ckpt = Path(seen["conf"].checkpoint_dir)
+    meta = json.loads((ckpt / "resnet_resume_meta.json").read_text())
+    point = sorted(p.name for p in (ckpt / "resnet_resume").glob("step_*.pt"))
+    log(8, check="SIGTERM after 10 steps", exit=code, steps=steps[0], resume_point=point,
+        completed_epochs=meta["completed_epochs"],
+        handler_restored=signal.getsignal(signal.SIGTERM) == handler)
+    if not (code == EXIT_PREEMPTED and point == [f"step_{PREEMPT_AFTER_STEPS}.pt"]
+            and meta["completed_epochs"] == 0 and signal.getsignal(signal.SIGTERM) == handler):
+        raise AssertionError("a preempted run did not exit 75 with a resume point")
+
+    # the pipeline on the card against the CPU
+    def fresh_pipeline(device):
+        """A new pipeline of the run's config, given the run's decoded PNGs
+        (the decode is timed above; a second one would only cost time)."""
+        fresh = DataPipeline.from_config(conf, device=device)
+        fresh._decode_cache.update(pipeline._decode_cache)
+        return fresh
+
+    batches = {}
+    for label, device in (("cpu", "cpu"), ("card", dev)):
+        it = fresh_pipeline(device).train_batch_generator()
+        batches[label] = [next(it) for _ in range(3)]
+        it.close()
+    pairs = list(zip(batches["card"], batches["cpu"]))
+    hr_equal = all(torch.equal(g[1].cpu(), c[1]) for g, c in pairs)
+    lr_err = max((g[0].cpu() - c[0]).abs().max().item() for g, c in pairs)
+    log(8, check="pipeline on the card vs the CPU, 3 batches", hr_bit_equal=hr_equal,
+        lr_max_abs=lr_err, tol=PIPELINE_LR_TOL)
+    if not (hr_equal and lr_err < PIPELINE_LR_TOL):
+        raise AssertionError(f"pipeline on the card vs the CPU: HR equal {hr_equal}, "
+                             f"LR {lr_err}")
+
+    # the epoch's parts: the pipeline alone (its decode cache warm) and the
+    # bare steps on its batches, each over one epoch of 60 batches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loop_batches = list(pipeline.train_batch_generator())
+    torch.cuda.synchronize()
+    pipeline_alone_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for lr, hr in loop_batches:
+        resumed.train_step(lr, hr)
+    torch.cuda.synchronize()
+    steps_alone_s = time.perf_counter() - t
+    log(8, check="one epoch's parts", phase_s=time.perf_counter() - t_phase,
+        batches=len(loop_batches),
+        pipeline_alone_s=pipeline_alone_s, pipeline_ms_per_batch=pipeline_alone_s * 1e3
+        / len(loop_batches), train_steps_alone_s=steps_alone_s,
+        train_step_ms=steps_alone_s * 1e3 / len(loop_batches), card=card)
+
+    def profile():
+        """The profiler on 10 steps of the loop (pipeline included), run
+        after every timing of the script."""
+        it = fresh_pipeline(dev).train_batch_generator()
+        trace = profile_steps(lambda: resumed.train_step(*next(it)), steps=10)
+        it.close()
+        log(8, profiler_10_steps_of_the_loop=trace, card=card)
+
+    return profile
 
 
 def main(work):
@@ -817,7 +1161,11 @@ def main(work):
         tiled_upscale_ms=tiled_ms, tiled_output_mpix_per_s=mpix / (tiled_ms / 1e3),
         forward_stage_ms_one_tiled_batch=stages, runs=TIMING_RUNS, card=smi_line)
 
-    train_phase(dev, work, gen, launches_by_path, smi_line)
+    profile_training = train_phase(dev, work, gen, launches_by_path, smi_line)
+    profile_yaml_run = yaml_phase(dev, work, launches_by_path, smi_line)
+    # the profilers of phases 7 and 8 last, after every timing
+    profile_training()
+    profile_yaml_run()
 
     def total(key):
         return sum(counts[key] for counts in launches_by_path.values())

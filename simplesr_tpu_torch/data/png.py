@@ -101,12 +101,28 @@ def read_png(path):
     return _unfilter(raw, height, stride, channels).reshape(height, width, channels)
 
 
+def read_png_size(path):
+    """A PNG's (height, width), from its header alone."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
+def read_rgb_u8(path):
+    """Decode a PNG to uint8 RGB (H, W, 3): grey repeated over the channels,
+    alpha dropped, as PIL's ``convert("RGB")`` gives it."""
+    img = read_png(path)
+    if img.shape[2] == 1:
+        return np.repeat(img, 3, axis=2)
+    return np.ascontiguousarray(img[:, :, :3])
+
+
 def read_img(fpath):
     """Decode an image file to float32 [0, 255] RGB HWC."""
-    img = read_png(fpath)
-    if img.shape[2] == 1:
-        img = np.repeat(img, 3, axis=2)
-    return img[:, :, :3].astype(np.float32)
+    return read_rgb_u8(fpath).astype(np.float32)
 
 
 def write_png(path, img):

@@ -28,6 +28,11 @@ class Loss:
                 metrics[f"weighted_{self.name}"] = weighted_loss
         return weighted_loss, metrics
 
+    def __str__(self):
+        return (f"## {type(self).__name__}\n"
+                f"weighted: {self.weighted}\n"
+                f"loss weight: {self.loss_weight}\n")
+
 
 def adapt_generator_loss(fn):
     """A bare callable ``f(hr, sr, hr_critic, sr_critic) -> scalar`` (or a

@@ -1,8 +1,8 @@
 """Generator wrapper, as simplesr_tpu.train.generator: the SRResNet module,
 its loss functors and metric bookkeeping.
 
-Same constructor surface, ``srresnet`` factory, ``module_config`` (the config
-a model file stores) and metric names ("generator_loss", one mean per loss
+Same constructor surface, ``srresnet`` factory, ``from_yaml``,
+``module_config`` (the config a model file stores) and metric names ("generator_loss", one mean per loss
 functor, ``weighted_`` variants) as the JAX package. The module lives on one
 device and ``SRModel`` trains its parameters in place; ``variables`` gives
 them in flax's layout. Parameters are initialised from ``seed`` with
@@ -156,6 +156,23 @@ class Generator:
         self._batch_metrics.update(metrics)
         self.epoch_metrics(train).update(metrics)
 
+    def formatted_epoch_metrics(self, train=True):
+        m = self.epoch_metrics(train).results()
+        out = f"\ttotal loss: {m.get('generator_loss', float('nan')):.5f}\n"
+        for name, val in m.items():
+            if name != "generator_loss":
+                out += f"\t{name}: {val:.5f}\n"
+        return out
+
+    def __str__(self):
+        loss_info = "".join(str(f) for f in self._loss_functions)
+        return ("# Generator\n"
+                f"architecture: {self._architecture}\n"
+                f"upsample factor: {self._upsample_factor}\n"
+                f"loss functions:\n {loss_info}\n"
+                f"number of residual blocks: {self._num_blocks}\n"
+                f"number of filters: {self._num_filters}\n")
+
     # ------------------------------------------------------------ factories
 
     @staticmethod
@@ -171,3 +188,15 @@ class Generator:
             num_filters=num_filters, kernel_size=kernel_size,
             batch_norm=batch_norm, input_dims=input_dims,
             pretrained_model_path=pretrained_model_path, **kw)
+
+    @staticmethod
+    def from_yaml(config_yaml, device="cuda"):
+        """The generator of a YAML config (a path or its loaded dict), its
+        ``model.generator`` section with the loss functors built by name."""
+        from simplesr_tpu_torch.config import yaml_helper
+
+        conf = yaml_helper.load_yaml(config_yaml)
+        gen_conf = dict(conf["model"]["generator"])
+        gen_conf["loss_functions"] = yaml_helper.init_loss_functions_from_yaml(gen_conf)
+        gen_conf.pop("loss_functions_yaml", None)
+        return Generator(**gen_conf, device=device)

@@ -8,26 +8,36 @@ loss, backward and optimizer update), ``validation_step``, ``generate``,
 of ``early_stop_metric``, saves a checkpoint on a new best, stops early after
 ``early_stop_patience`` and restores the best checkpoint) and
 ``after_training`` (restores the best checkpoint and saves the ``_best``
-model), with the same batch and epoch history keys. ``skip_nonfinite_updates``
-(on by default) drops a step whose gradients are not finite, as
-``optax.apply_if_finite(max_consecutive_errors=100)`` does.
+model), with the same batch and epoch history keys, ``test_and_plot``, the
+four TensorBoard writers, ``SRModel.init`` from a ConfigUtil, and the
+preemption-tolerant ``save_resume_point`` and ``resume_training``.
+``skip_nonfinite_updates`` (on by default) drops a step whose gradients are
+not finite, as ``optax.apply_if_finite(max_consecutive_errors=100)`` does.
 
 Model files, written by ``save_model``, are the format that both packages
 read and write (``train/serialization.py``). The best-state checkpoints that
 ``after_epoch`` writes and ``after_training`` and early stopping restore are
 the port's own: one ``torch.save`` file per step under
 ``checkpoint_dir/resnet/``, the newest 5 kept, each holding the parameters
-and buffers, the optimizer state, the step and the best metric. Orbax (the
-JAX package's checkpoints) cannot read them, nor they orbax's.
+and buffers, the optimizer and NaN-guard state, the step, the best metric
+and the model's random stream. The resume point is one more such file, the
+newest only, under ``checkpoint_dir/resnet_resume/``, written after every
+epoch and on preemption, beside the JAX package's JSON sidecar
+``checkpoint_dir/resnet_resume_meta.json`` (completed epochs, iterations,
+early-stopping state, epoch histories). Orbax (the JAX package's
+checkpoints) cannot read them, nor they orbax's.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
 item: the GAN mode, distillation and the warm start from a ResNet
 checkpoint; meshes, FSDP, tensor and pipeline parallelism; the paired trunk;
-EMA and gradient accumulation; TensorBoard writers; resume.
+EMA and gradient accumulation.
 """
 
+import json
+import logging
 import os
 import re
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,14 +52,13 @@ from simplesr_tpu_torch.train.optimizers import SkipNonFinite, build_optimizer
 _KEEP_CHECKPOINTS = 5
 _CHECKPOINT = re.compile(r"step_(\d+)\.pt")
 
-_GAN = "ROADMAP.md, Queue 1, the GAN family"
-_PARALLEL = "ROADMAP.md, Queue 1, the parallel layer"
-_PAIRED = "ROADMAP.md, Queue 1, paired_train"
-_EMA_ACCUM = "ROADMAP.md, Queue 1, EMA and gradient accumulation"
-_LOOP = "ROADMAP.md, Queue 1, the data pipeline, config and the training loop"
+GAN_ITEM = "ROADMAP.md, Queue 1, the GAN family"
+PARALLEL_ITEM = "ROADMAP.md, Queue 1, the parallel layer"
+PAIRED_ITEM = "ROADMAP.md, Queue 1, paired_train"
+EMA_ACCUM_ITEM = "ROADMAP.md, Queue 1, EMA and gradient accumulation"
 
 
-def _not_ported(what, item):
+def not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet: {item}")
 
 
@@ -86,11 +95,12 @@ class SRModel:
                  pipeline_microbatches=None,
                  paired_ways=None,
                  device="cuda"):
-        """``seed`` (the GAN mode's noise), ``tb_batch_interval`` (writers),
-        ``async_checkpointing`` (checkpoints are written at once) and
-        ``pipeline_microbatches`` are accepted as the JAX package takes them
-        and change nothing in ResNet mode. The generator's module moves to
-        ``device``."""
+        """``seed`` roots the model's random stream (the GAN mode's noise;
+        checkpointed, unused in ResNet mode); ``async_checkpointing`` (the
+        port's checkpoints are written at once) and ``pipeline_microbatches``
+        are accepted as the JAX package takes them and change nothing. Batch
+        metrics go to the batch writers every ``tb_batch_interval`` steps.
+        The generator's module moves to ``device``."""
         if model_type.lower() not in ("gan", "resnet"):
             raise ValueError("model type not recognized")
         if generator is None:
@@ -112,28 +122,33 @@ class SRModel:
         if fsdp and mesh is None:
             raise ValueError("fsdp=True requires a device mesh (mesh=...)")
         unported = [
-            (model_type.lower() == "gan", "model_type='gan'", _GAN),
-            (distill is not None, "distillation", _GAN),
-            (resnet_checkpoint is not None, "the warm start from a resnet_checkpoint", _GAN),
-            (mesh is not None, "training on a mesh", _PARALLEL),
-            (tensor_parallel, "tensor_parallel", _PARALLEL),
-            (pipeline_parallel, "pipeline_parallel", _PARALLEL),
-            (paired_ways is not None and int(paired_ways) > 1, "paired_ways > 1", _PAIRED),
-            (ema_decay is not None, "ema_decay", _EMA_ACCUM),
+            (model_type.lower() == "gan", "model_type='gan'", GAN_ITEM),
+            (distill is not None, "distillation", GAN_ITEM),
+            (resnet_checkpoint is not None, "the warm start from a resnet_checkpoint", GAN_ITEM),
+            (mesh is not None, "training on a mesh", PARALLEL_ITEM),
+            (tensor_parallel, "tensor_parallel", PARALLEL_ITEM),
+            (pipeline_parallel, "pipeline_parallel", PARALLEL_ITEM),
+            (paired_ways is not None and int(paired_ways) > 1, "paired_ways > 1", PAIRED_ITEM),
+            (ema_decay is not None, "ema_decay", EMA_ACCUM_ITEM),
             (grad_accum_steps is not None and int(grad_accum_steps) > 1,
-             "grad_accum_steps > 1", _EMA_ACCUM),
-            (any(w is not None for w in (epoch_train_summary_writer, batch_train_summary_writer,
-                                         epoch_validation_summary_writer,
-                                         batch_validation_summary_writer)),
-             "TensorBoard summary writers", _LOOP),
+             "grad_accum_steps > 1", EMA_ACCUM_ITEM),
         ]
         for unsupported, what, item in unported:
             if unsupported:
-                raise _not_ported(what, item)
+                raise not_ported(what, item)
 
         self._model_type = model_type.lower()
+        self.name = model_type
         self._epochs = 0
         self._iterations = 0
+        self._in_epoch = False
+        self._tb_batch_interval = tb_batch_interval
+        self._epoch_train_summary_writer = epoch_train_summary_writer
+        self._batch_train_summary_writer = batch_train_summary_writer
+        self._epoch_validation_summary_writer = epoch_validation_summary_writer
+        self._batch_validation_summary_writer = batch_validation_summary_writer
+        self._generator_optimizer_config = generator_optimizer_config
+        self._rng = torch.Generator().manual_seed(int(seed))
         self._model_dir = "./models"
         self._checkpoint_dir = "./checkpoints"
         if config is not None:
@@ -151,6 +166,8 @@ class SRModel:
         self._step = 0
         self._best_metric = -1.0
         self._ckpt_dir = os.path.abspath(os.path.join(self._checkpoint_dir, self._model_type))
+        self._resume_dir = self._ckpt_dir + "_resume"
+        self._last_resume_step = None
 
         self._image_metrics = image_metrics if image_metrics is not None else \
             dict(psnr=image_metrics_lib.psnr)
@@ -217,31 +234,65 @@ class SRModel:
     def generate(self, lr_batch, ema=False):
         """SR with the current generator parameters, in eval mode."""
         if ema:
-            raise _not_ported("EMA weights", _EMA_ACCUM)
+            raise not_ported("EMA weights", EMA_ACCUM_ITEM)
         return self._generator.generate(lr_batch)
+
+    def test_and_plot(self, lr_batch, save_dir, step, hr_batch=None, file_path=None):
+        """SR a batch and save an annotated grid of it, its bicubic
+        upscale and (given) the ground truth."""
+        from simplesr_tpu_torch.eval import rendering
+        from simplesr_tpu_torch.ops.resize import resize
+
+        sr_batch = self.generate(lr_batch)
+        fname = f"{str(self._epochs).zfill(5)}_{str(step).zfill(3)}"
+        lr = torch.as_tensor(lr_batch, dtype=torch.float32)
+        kwargs = {
+            self._model_type: sr_batch,
+            "bicubic": resize(lr, (sr_batch.shape[1], sr_batch.shape[2]), method="bicubic"),
+        }
+        if hr_batch is not None:
+            kwargs["ground truth"] = hr_batch
+        save_dir = os.path.join(save_dir, self._model_type)
+        if file_path is not None:
+            fp = file_path[0] if isinstance(file_path, (list, tuple)) else file_path
+            save_dir = os.path.join(save_dir, Path(str(fp)).parent.stem)
+        rendering.prepare_image_grid(save_dir=save_dir, fname=fname, original=None, psnr=None,
+                                     low_res_key=None, **kwargs)
 
     # ============================================================ lifecycle
 
     def before_epoch(self):
         self._reset_epoch_metrics()
         self._epochs += 1
+        self._in_epoch = True
+
+    def _tb_due(self, writer):
+        return writer is not None and self._tb_batch_interval and \
+            self._iterations % self._tb_batch_interval == 0
 
     def after_train_batch(self):
-        """Record the batch's metrics (as tensors, read when needed) and
-        reset them."""
+        """Record the batch's metrics (as tensors, read when needed), write
+        them to TensorBoard every ``tb_batch_interval`` steps, and reset
+        them."""
         self._iterations += 1
+        if self._tb_due(self._batch_train_summary_writer):
+            self._log_batch_metrics_to_tb(train=True)
         self._update_history(self._combined_batch_metrics(), self._train_batch_history)
         self._reset_batch_metrics()
 
     def after_validation_batch(self):
+        if self._tb_due(self._batch_validation_summary_writer):
+            self._log_batch_metrics_to_tb(train=False)
         self._update_history(self._combined_batch_metrics(), self._valid_batch_history)
         self._reset_batch_metrics()
 
     def after_epoch(self):
         """Save the model, record the epoch's metrics, track the best metric,
-        maybe stop early (restoring the best checkpoint), and checkpoint on a
-        new best."""
+        maybe stop early (restoring the best checkpoint), checkpoint on a new
+        best, and write the resume point."""
         self.save_model(self._model_dir)
+        self._log_epoch_metrics_to_tb(train=True)
+        self._log_epoch_metrics_to_tb(train=False)
         self._update_epoch_history()
 
         tracked = self._valid_epoch_metrics.ensure(self._early_stop_metric).result()
@@ -257,6 +308,10 @@ class SRModel:
         if self._early_stopping_util.num_epochs_after_best() == 0:
             self._save_checkpoint()
 
+        # the newest state (not the best): an interrupted run resumes here
+        self._in_epoch = False
+        self._save_resume_point(self._epochs)
+
     def after_training(self):
         """Restore the best checkpoint and save the ``_best`` model."""
         self._restore_latest_checkpoint()
@@ -268,7 +323,7 @@ class SRModel:
         ``<save_path>/<model type>_gen_<postfix>.msgpack`` (the epoch count
         by default). Returns the path."""
         if ema:
-            raise _not_ported("EMA weights", _EMA_ACCUM)
+            raise not_ported("EMA weights", EMA_ACCUM_ITEM)
         if postfix is None:
             postfix = self._epochs
         path = os.path.join(save_path,
@@ -277,57 +332,143 @@ class SRModel:
                                  path)
         return path
 
-    def resume_training(self):
-        raise _not_ported("resume_training", _LOOP)
+    # ================================================ preemption and resume
+
+    def _resume_meta_path(self):
+        return os.path.join(self._checkpoint_dir, f"{self._model_type}_resume_meta.json")
+
+    def _save_resume_point(self, completed_epochs):
+        """The newest state (when the step moved since the last one) and the
+        JSON sidecar with what the state does not hold."""
+        if self._step != self._last_resume_step:
+            self._save_checkpoint(self._resume_dir, keep=1)
+            self._last_resume_step = self._step
+        self._write_resume_meta(completed_epochs)
 
     def save_resume_point(self):
-        raise _not_ported("save_resume_point", _LOOP)
+        """Checkpoint the current state for a preempted run. Called inside
+        an epoch, it records the last completed epoch: on resume the
+        interrupted epoch runs again from the preempted state."""
+        completed = self._epochs - 1 if self._in_epoch else self._epochs
+        self._save_resume_point(max(completed, 0))
+
+    def _write_resume_meta(self, completed_epochs):
+        def _floats(history):
+            return {k: [float(v) for v in vs] for k, vs in history.items()}
+
+        meta = {
+            "completed_epochs": int(completed_epochs),
+            "iterations": int(self._iterations),
+            "model_type": self._model_type,
+            "early_stop": self._early_stopping_util.state_dict(),
+            "train_epoch_history": _floats(self._train_epoch_history),
+            "valid_epoch_history": _floats(self._valid_epoch_history),
+        }
+        path = self._resume_meta_path()
+        tmp = f"{path}.tmp{os.getpid()}"
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, path)  # readers never see a partial file
+
+    def _read_resume_meta(self):
+        try:
+            with open(self._resume_meta_path()) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def resume_training(self):
+        """Resume an interrupted run: restore the newest state (the resume
+        point, or the best checkpoint when it is newer) and, from the
+        sidecar, the epoch counter, iterations, early-stopping state and
+        epoch histories. Returns the number of completed epochs, or None
+        when there is nothing to resume."""
+        resume_step, resume_path = self._latest(self._resume_dir)
+        best_step, best_path = self._latest(self._ckpt_dir)
+        if resume_step is None and best_step is None:
+            return None
+        if resume_step is not None and (best_step is None or resume_step >= best_step):
+            self._restore(resume_path)
+        else:
+            self._restore(best_path)
+        self._iterations = self._step
+        self._last_resume_step = self._step
+
+        meta = self._read_resume_meta()
+        if meta is None:
+            logging.getLogger("simple_sr").warning(
+                "resume: checkpoint restored but no resume meta found - epoch counters and "
+                "early-stop state start fresh (the restored weights act as a warm start)")
+            return 0
+        self._epochs = int(meta["completed_epochs"])
+        self._iterations = int(meta.get("iterations", self._iterations))
+        self._early_stopping_util.load_state_dict(meta["early_stop"])
+        self._train_epoch_history = {k: list(v) for k, v in meta["train_epoch_history"].items()}
+        self._valid_epoch_history = {k: list(v) for k, v in meta["valid_epoch_history"].items()}
+        return self._epochs
 
     # ========================================================= checkpointing
 
-    def _checkpoint_steps(self):
-        if not os.path.isdir(self._ckpt_dir):
+    @staticmethod
+    def _checkpoint_steps(directory):
+        if not os.path.isdir(directory):
             return []
         return sorted(int(m.group(1)) for m in map(_CHECKPOINT.fullmatch,
-                                                   os.listdir(self._ckpt_dir)) if m)
+                                                   os.listdir(directory)) if m)
 
-    def _save_checkpoint(self):
-        os.makedirs(self._ckpt_dir, exist_ok=True)
+    def _save_checkpoint(self, directory=None, keep=_KEEP_CHECKPOINTS):
+        """Write the state as ``<directory>/step_<step>.pt`` (the best-state
+        directory by default) and keep the newest ``keep``."""
+        directory = directory or self._ckpt_dir
+        os.makedirs(directory, exist_ok=True)
         state = {
             "step": self._step,
             "best_metric": self._best_metric,
             "params": {k: v.detach().cpu().clone()
                        for k, v in self._generator.model().state_dict().items()},
             "optimizer": _to_cpu(self._optimizer.state_dict()),
+            "rng": self._rng.get_state(),
         }
-        path = os.path.join(self._ckpt_dir, f"step_{self._step}.pt")
+        path = os.path.join(directory, f"step_{self._step}.pt")
         tmp = f"{path}.tmp{os.getpid()}"
         torch.save(state, tmp)
         os.replace(tmp, path)  # readers never see a partial file
-        for step in self._checkpoint_steps()[:-_KEEP_CHECKPOINTS]:
-            os.remove(os.path.join(self._ckpt_dir, f"step_{step}.pt"))
+        for step in self._checkpoint_steps(directory)[:-keep]:
+            os.remove(os.path.join(directory, f"step_{step}.pt"))
 
-    def latest_checkpoint(self):
-        """The newest checkpoint's step (None without one) and its path."""
-        steps = self._checkpoint_steps()
+    def _latest(self, directory):
+        steps = self._checkpoint_steps(directory)
         if not steps:
             return None, None
-        return steps[-1], os.path.join(self._ckpt_dir, f"step_{steps[-1]}.pt")
+        return steps[-1], os.path.join(directory, f"step_{steps[-1]}.pt")
 
-    def _restore_latest_checkpoint(self):
-        step, path = self.latest_checkpoint()
-        if step is None:
-            return
+    def latest_checkpoint(self):
+        """The newest best-state checkpoint's step (None without one) and
+        its path."""
+        return self._latest(self._ckpt_dir)
+
+    def _restore(self, path):
         state = torch.load(path, map_location=self._device, weights_only=True)
         self._generator.model().load_state_dict(state["params"])
         self._optimizer.load_state_dict(state["optimizer"])
         self._step = int(state["step"])
         self._best_metric = float(state["best_metric"])
+        self._rng.set_state(state["rng"].cpu())
+
+    def _restore_latest_checkpoint(self):
+        step, path = self.latest_checkpoint()
+        if step is not None:
+            self._restore(path)
 
     # ============================================================== access
 
     def iterations(self):
         return self._iterations
+
+    @property
+    def device(self):
+        return self._device
 
     @property
     def step(self):
@@ -364,10 +505,32 @@ class SRModel:
 
     # ============================================================== metrics
 
-    def _combined_batch_metrics(self):
-        out = dict(self._batch_metrics.last_values())
-        out.update(self._generator.batch_metrics().last_values())
+    def _combined_batch_metrics(self, lazy=True):
+        """The batch's metrics: as given (tensors, no device sync), or as
+        floats (``lazy=False``)."""
+        if lazy:
+            out = dict(self._batch_metrics.last_values())
+            out.update(self._generator.batch_metrics().last_values())
+            return out
+        out = dict(self._batch_metrics.results())
+        out.update(self._generator.batch_metrics().results())
         return out
+
+    def _log_batch_metrics_to_tb(self, train=True):
+        writer = self._batch_train_summary_writer if train else \
+            self._batch_validation_summary_writer
+        if writer is None:
+            return
+        for name, value in self._combined_batch_metrics(lazy=False).items():
+            writer.add_scalar(f"{name}_batch", value, self._iterations)
+
+    def _log_epoch_metrics_to_tb(self, train=True):
+        writer = self._epoch_train_summary_writer if train else \
+            self._epoch_validation_summary_writer
+        if writer is None:
+            return
+        for name, value in self._combined_epoch_metrics(train).items():
+            writer.add_scalar(name, value, self._epochs)
 
     def _combined_epoch_metrics(self, train=True):
         own = self._train_epoch_metrics if train else self._valid_epoch_metrics
@@ -400,6 +563,77 @@ class SRModel:
     def _reset_batch_metrics(self):
         self._batch_metrics.reset()
         self._generator.reset_batch_metrics()
+
+    def formatted_epoch_metrics(self):
+        return self._format_metrics(True, "Training") + self._format_metrics(False, "Validation")
+
+    def _format_metrics(self, train, header):
+        own = self._train_epoch_metrics if train else self._valid_epoch_metrics
+        img = "".join(f"{k}: {v:.5f}\n" for k, v in own.results().items())
+        gen = self._generator.formatted_epoch_metrics(train=train)
+        return f"{header}\n{img}Generator\n{gen}"
+
+    def __str__(self):
+        return (f"# SR Model\n"
+                f"model type: {self._model_type}\n"
+                f"generator optimizer config: {self._generator_optimizer_config}\n"
+                f"discriminator optimizer config: None\n"
+                f"image metrics: {list(self._image_metrics)}\n"
+                f"early stop metric: {self._early_stop_metric}\n"
+                f"early stop patience: {self._early_stop_patience}\n\n"
+                f"{self._generator}\nNone")
+
+    # ============================================================== factory
+
+    @staticmethod
+    def init(config, generator, generator_optimizer, generator_optimizer_config=None,
+             discriminator=None, discriminator_optimizer=None,
+             discriminator_optimizer_config=None, image_metrics=None, device="cuda"):
+        """The model of a ConfigUtil: its type from the discriminator, its
+        early stopping, writers and directories from the config. What the
+        port has not ported raises ``NotImplementedError`` with its
+        ROADMAP.md item: more than one device under ``data_parallel``,
+        ``fsdp``, ``tensor_parallel``, ``pipeline_parallel``,
+        ``paired_train`` > 1, ``distill``, ``ema_decay``, ``ema_eval`` and
+        ``grad_accum_steps`` > 1."""
+        device = resolve_device(device)
+        tp = int(getattr(config, "tensor_parallel", 0) or 0)
+        pp = int(getattr(config, "pipeline_parallel", 0) or 0)
+        if tp > 1 and pp > 1:
+            raise ValueError("tensor_parallel and pipeline_parallel are mutually exclusive")
+        paired = getattr(config, "paired_train", None)
+        grad_accum = getattr(config, "grad_accum_steps", None)
+        multi_device = device.type == "cuda" and torch.cuda.device_count() > 1
+        unported = [
+            (getattr(config, "data_parallel", False) and multi_device,
+             "data_parallel over more than one device", PARALLEL_ITEM),
+            (getattr(config, "fsdp", False), "fsdp", PARALLEL_ITEM),
+            (tp > 1, "tensor_parallel", PARALLEL_ITEM),
+            (pp > 1, "pipeline_parallel", PARALLEL_ITEM),
+            (paired is not None and int(paired) > 1, "paired_train > 1", PAIRED_ITEM),
+            (getattr(config, "distill", None) is not None, "distill", GAN_ITEM),
+            (getattr(config, "ema_decay", None) is not None, "ema_decay", EMA_ACCUM_ITEM),
+            (getattr(config, "ema_eval", False), "ema_eval", EMA_ACCUM_ITEM),
+            (grad_accum is not None and int(grad_accum) > 1, "grad_accum_steps > 1",
+             EMA_ACCUM_ITEM),
+        ]
+        for unsupported, what, item in unported:
+            if unsupported:
+                raise not_ported(what, item)
+        return SRModel(
+            model_type="resnet" if discriminator is None else "gan", generator=generator,
+            generator_optimizer=generator_optimizer,
+            generator_optimizer_config=generator_optimizer_config,
+            discriminator=discriminator, discriminator_optimizer=discriminator_optimizer,
+            discriminator_optimizer_config=discriminator_optimizer_config,
+            image_metrics=image_metrics,
+            early_stop_metric=config.early_stop_metric,
+            early_stop_patience=config.early_stop_patience,
+            epoch_train_summary_writer=config.epoch_train_summary_writer,
+            batch_train_summary_writer=config.batch_train_summary_writer,
+            epoch_validation_summary_writer=config.epoch_validation_summary_writer,
+            batch_validation_summary_writer=config.batch_validation_summary_writer,
+            config=config, device=device)
 
 
 def _to_cpu(tree):

@@ -277,3 +277,27 @@ def test_kernel_images_do_not_pile_up_in_training(cuda):
     torch.cuda.synchronize()
     assert residual_trunk.launches == before + 5
     assert len(_images) <= held
+
+
+@pytest.mark.parametrize("resident", ["auto", False])
+def test_pipeline_on_cuda_matches_cpu(cuda, resident):
+    """The production recipe's pipeline (flips, 90 degree turns, 96 x 96
+    crops, x4) for one seed: its first 3 training batches on the card
+    against the CPU, HR bit-equal, LR max abs < 1e-4 on [0, 1]."""
+    from pathlib import Path
+
+    from simplesr_tpu_torch.data import DataPipeline
+
+    gallery = str(Path(__file__).resolve().parents[1] / "data/corpus/gallery")
+    kw = dict(hr_img_path=gallery, scale=4, train_val_split=0.05, batch_size=16,
+              augmentations=["flip_along_x", "flip_along_y", "rotate90"],
+              crop_size=(96, 96, 3), num_crops=16, random_seed=0,
+              device_resident=resident)
+    batches = {}
+    for device in ("cpu", "cuda"):
+        it = DataPipeline(device=device, **kw).train_batch_generator()
+        batches[device] = [next(it) for _ in range(3)]
+    for (cl, ch), (gl, gh) in zip(batches["cpu"], batches["cuda"]):
+        assert gh.device.type == "cuda" and gh.shape == (16, 96, 96, 3)
+        assert torch.equal(gh.cpu(), ch)
+        assert (gl.cpu() - cl).abs().max().item() < 1e-4

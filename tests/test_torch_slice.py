@@ -99,6 +99,27 @@ def test_predictor_forms_and_unported_options(small_model):
         _as_predictor(3, device="cpu")
 
 
+def test_predictor_of_a_trained_model_ignores_fast(small_model):
+    """An SRModel or a Generator serves its ``generate`` whatever ``fast``
+    says, as the JAX package's ``_as_predictor`` does; ``fast=True`` on a
+    path or a (module, state_dict) pair still names the polyphase rewrite."""
+    from simplesr_tpu_torch.train import Generator as TorchGenerator
+    from simplesr_tpu_torch.train import SRModel
+    from simplesr_tpu_torch.train.serialization import load_model
+
+    gen = TorchGenerator.srresnet(2, num_blocks=1, num_filters=8, batch_norm=False,
+                                  device="cpu")
+    model = SRModel("resnet", gen, device="cpu")
+    x = torch.rand((2, 8, 8, 3))
+    for fast in (True, False):
+        assert torch.equal(_as_predictor(model, fast=fast, device="cpu")(x), model.generate(x))
+        assert torch.equal(_as_predictor(gen, fast=fast, device="cpu")(x), gen.generate(x))
+    module = load_model(small_model, device="cpu")
+    for form in (small_model, (module, module.state_dict())):
+        with pytest.raises(NotImplementedError, match="polyphase"):
+            _as_predictor(form, fast=True, device="cpu")
+
+
 def test_engine_batches_and_matches_one_shot(small_model):
     engine = SREngine(small_model, scale=2, max_batch=4, max_wait_ms=50, device="cpu")
     calls = []
@@ -246,19 +267,37 @@ def test_port_imports_only_torch_numpy_and_stdlib():
             assert top not in FORBIDDEN and top in allowed, f"{path}: imports {name}"
 
 
-@pytest.mark.parametrize("entry", ["upscale_files", "engine", "load_model", "build"])
+@pytest.mark.parametrize("entry", ["upscale_files", "engine", "load_model", "build",
+                                   "data_pipeline", "config_from_yaml", "train_tool",
+                                   "run_training"])
 def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from simplesr_tpu_torch.config import ConfigUtil, _yaml
+    from simplesr_tpu_torch.data import DataPipeline
     from simplesr_tpu_torch.models import build_generator_model
+    from simplesr_tpu_torch.tools.train import main as train_main
+    from simplesr_tpu_torch.train import run_training
     from simplesr_tpu_torch.train.serialization import load_model
 
+    spec = _yaml.load(str(ROOT / "examples/training/minimal_example.yaml"))
+    spec["general"].update(train_data_paths=str(GALLERY[0].parent),
+                           validation_data_path=str(GALLERY[0].parent),
+                           results_save_path=str(tmp_path / "results"))
+    yaml_path = tmp_path / "run.yaml"
+    yaml_path.write_text(_yaml.dump(spec))
     calls = {"upscale_files": lambda: upscale_files(small_model, [], tmp_path, 2),
              "engine": lambda: SREngine(small_model, 2),
              "load_model": lambda: load_model(small_model),
-             "build": lambda: build_generator_model(2)}
+             "build": lambda: build_generator_model(2),
+             "data_pipeline": lambda: DataPipeline(str(GALLERY[0].parent), 4),
+             "config_from_yaml": lambda: ConfigUtil.from_yaml(str(yaml_path)),
+             "train_tool": lambda: train_main([str(yaml_path)]),
+             "run_training": lambda: run_training(*ConfigUtil.from_yaml(str(yaml_path),
+                                                                        device="cpu"))}
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
+    assert not (tmp_path / "results").exists() or entry == "run_training"
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

@@ -214,17 +214,19 @@ def test_constructor_checks_and_unported_options(tmp_path):
     unported = [dict(model_type="gan", discriminator=object(), discriminator_optimizer="Adam"),
                 dict(distill={"teacher": "x"}), dict(resnet_checkpoint=str(tmp_path)),
                 dict(mesh=object()), dict(tensor_parallel=True), dict(pipeline_parallel=True),
-                dict(paired_ways=2), dict(ema_decay=0.999), dict(grad_accum_steps=2),
-                dict(batch_train_summary_writer=object())]
+                dict(paired_ways=2), dict(ema_decay=0.999), dict(grad_accum_steps=2)]
     for kw in unported:
         kw.setdefault("model_type", "resnet")
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             SRModel(generator=gen, device="cpu", **kw)
     model = SRModel("resnet", gen, config=_cfg(tmp_path), device="cpu")
-    for call in (model.resume_training, model.save_resume_point,
-                 lambda: model.generate(np.zeros((1, 4, 4, 3), np.float32), ema=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        model.generate(np.zeros((1, 4, 4, 3), np.float32), ema=True)
+    # writers and resume are ported: nothing to resume yet, then a resume point
+    assert model.resume_training() is None
+    model.save_resume_point()
+    assert model.resume_training() == 0 and model.step == 0
+    SRModel("resnet", gen, batch_train_summary_writer=None, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             SRModel("resnet", gen)
