@@ -75,7 +75,52 @@ plain PyTorch version, in one process, with no arguments:
      memory, one epoch of the pipeline alone and of the bare steps on its
      batches, and a ``torch.profiler`` trace of 10 steps of the loop, taken
      last (a profiler session slows the launches after it, so phase 7's
-     traces wait until phase 8's timings are done).
+     traces wait until phase 8's timings are done);
+  9. the SRGAN stage from its YAML file (examples/training/srgan_x4.yaml),
+     its two-stage pipeline: ``pretrained_model_path`` set to the flagship,
+     so the generator is the BN-free 16 x 64 bf16 SRResNet of that file
+     (the YAML's ``batch_norm: true`` yields to the file's architecture, as
+     in the JAX package) and its trunk is the trunk kernel; all else of the
+     recipe kept (VGG54 post-activation / 12.75 + adversarial 1e-3, the
+     standard critic at 96 x 96 with label smoothing 0.2, Adam 1e-4 for both,
+     batch 16 of 96 x 96, 16 crops per image, flips and turns, split 0.05),
+     cut to the gallery PNGs, 2 epochs, seed 0, a temporary results
+     directory and VGG from its seeded init (no ImageNet weights are in the
+     repo), each cut printed in ``reduced``; run through ``tools.train.main``.
+     Checks: exit 0, the JAX package's save-dir tree with ``gan_gen_*``
+     files, finite histories with the critic's metrics, one trunk launch per
+     ``train_step``, ``validation_step`` and ``generate``; the ``_best``
+     file's output bit-equal to ``generate``; on the stage's first GAN
+     step from the flagship, over 3 batches, the step through
+     ``TrunkFunction`` (one trunk launch) against the same step with the
+     plain trunk in autograd: the trunk's output, sr and the losses at
+     phase 7's bounds; the trunk's output and the generator's gradients
+     given one gradient at sr no further from a trunk summed in float64
+     than the plain trunk's (the step's own gradients' distances and the
+     per-tensor differences printed); the wiring of
+     ``TrunkFunction``'s gradients against the plain trunk given the
+     kernel's forward values (bounds argued at GAN_RATIO_BATCHES and
+     GAN_WIRING_TOL); the critic's running statistics after one step equal
+     to a copy's after the same two training-mode calls (the generator
+     branch moves them no further); ``--resume`` with
+     3 epochs continues at epoch 3. Printed: the step's time (CUDA-event
+     median of 20) and its parts (generator forward, critic forwards, the
+     VGG loss's forward, the other losses, the gradient passes, the two
+     optimizers), HR MPix/s, epoch seconds, peak memory;
+ 10. ESRGAN from its YAML file (examples/training/esrgan_x4.yaml): 16 RRDB
+     blocks x 64 filters, 3 dense blocks x 4 convs, batch 16 of 128 x 128,
+     EMA 0.999, L1 1e-2 + relativistic adversarial 5e-3 + VGG54
+     pre-activation, the relativistic critic at 128 x 128, Adam on the
+     recipe's schedules, with phase 9's cuts. Checks as phase 9's run (no
+     kernel launch: RRDB runs cuDNN convolutions, as the JAX package runs
+     it outside Pallas); then its ``_best`` and ``_best_ema`` files through
+     ``tools.upscale.upscale_files``, each untiled on a gallery PNG (no
+     launch), and ``_best_ema``, the file ESRGAN serves, tiled on phase 3's
+     1100 x 1040 LR PNG (one patch-kernel launch, counted); both files
+     finite, the EMA one different; the card against
+     the CPU on a 32 x 40 crop (max abs and the mean against the float32
+     model, bounds at RRDB_ROUTE_MAX_ABS_TOL). Printed as phase 9's.
+     The ``torch.profiler`` traces of phases 7 to 10 run last, in order.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -181,6 +226,64 @@ JAX_RUN_TREE = {
     "pics/val/resnet/00002_000.png", "results_logfile"}
 
 
+# Phases 9 and 10: the GAN family from its example YAML files, cut to the
+# gallery, 2 epochs and seed 0 (VGG from its seeded init: no ImageNet
+# weights are in the repo).
+SRGAN_RECIPE = ROOT / "examples/training/srgan_x4.yaml"
+ESRGAN_RECIPE = ROOT / "examples/training/esrgan_x4.yaml"
+GAN_EPOCHS = 2
+GAN_STEP_RUNS = 20
+# Phase 9 holds the trunk kernel against the plain trunk on the SRGAN
+# stage's first step from the flagship (after the two epochs of the recipe
+# with random-init VGG the generator's tanh can be saturated and every
+# gradient 0, measured), on GAN_RATIO_BATCHES batches, with cuDNN's
+# deterministic algorithms (without them the backward-data convolutions
+# differ run to run by float32 noise, which TF32's rounding of the backward
+# convs' operands turns into about a percent, measured on the H100):
+# - per batch, the trunk's output on the step's input and sr at phase 7's
+#   TRAIN_GRAD_FRO_TOL (3x the 16-block chain's rounding difference), and
+#   the two losses at TRAIN_LOSS_REL_TOL;
+# - over the batches, the kernel's trunk output, and the generator's
+#   gradients given one gradient at sr (the float64 trunk's), no further
+#   from a trunk summed in float64 than the plain trunk's are, up to
+#   TRUNK_CHAIN_FRO_RATIO (phase 2's chain bound).
+# The gradients are held by that ratio and not, as in phase 7, kernel
+# against plain per tensor: the GAN losses make them sensitive to rounding.
+# The generator's gradient at sr is carried by VGG(sr) - VGG(hr), a
+# difference of near-equal features at the pretrained flagship, and the
+# critic's by its gradients at sr and at hr, nearly equal inputs: sr's
+# rounding (0.09-0.3 % from float64 sums) becomes 2-22 % in the gradient at
+# sr, and which trunk lands nearer float64 is chance (one batch read the
+# kernel's generator gradients 3.2x further from float64 than the plain
+# trunk's, and 1.01x given one gradient at sr). Even given one gradient at
+# sr, a weight's gradient sums that oscillating field against the
+# activations, so the forward's rounding moves it by up to 8 %: the kernel
+# against the plain trunk read 8.4e-2 on upsample.0.conv.weight, the plain
+# trunk against float64 sums 8 % over all (measured on the H100; PERF.md §7).
+# The per-tensor and own-gradient distances are printed.
+GAN_RATIO_BATCHES = 3
+GAN_RATIO_GATED = ("trunk", "G_same_grad_at_sr")
+# The wiring: TrunkFunction against the plain trunk under autograd given the
+# kernel's forward values exactly (kernel + (plain - plain)), in one step.
+# TrunkFunction's backward is that plain trunk's, so the two routes compute
+# the same arithmetic (sr bit-equal); a gradient missing, of another tensor
+# or scaled differs by order 1. Held per generator tensor and over all the
+# critic's gradients.
+GAN_WIRING_TOL = 1e-5
+# The critic's running statistics after one train step against a copy of
+# the critic given the same SR and HR batches in training mode: the same
+# convolutions on the same inputs, up to cuDNN's choice of algorithm.
+D_STATS_REL_TOL = 1e-3
+# The ESRGAN model file on the card against the CPU on a 32 x 40 gallery
+# crop: max abs on [-1, 1], two summation orders of one bf16 model through
+# 16 RRDB blocks (240 convs). The port and flax, two such orders on the CPU,
+# part by 9.8e-5 on this crop for the recipe's generator at its seeded init
+# (tests/test_torch_rrdb.py holds them to this bound); and the card's mean
+# abs error against the model in float32 at most this factor of the CPU's.
+RRDB_ROUTE_MAX_ABS_TOL = 5e-4
+RRDB_MEAN_RATIO = 1.5
+
+
 def log(phase, **result):
     print(json.dumps({"phase": phase, **result}), flush=True)
 
@@ -263,9 +366,11 @@ def float64_sums(model, x):
     and rounded to bf16 where the model rounds."""
     from simplesr_tpu_torch.models import blocks
 
-    def conv2d(h, weight, bias, dtype):
-        y = F.conv2d(h.to(dtype).double(), weight.to(dtype).double(),
-                     padding=weight.shape[-1] // 2).to(dtype)
+    def conv2d(h, weight, bias, dtype, stride=1):
+        (top, bottom), (left, right) = (blocks.same_padding(n, weight.shape[-1], stride)
+                                        for n in h.shape[-2:])
+        y = F.conv2d(F.pad(h.to(dtype).double(), (left, right, top, bottom)),
+                     weight.to(dtype).double(), stride=stride).to(dtype)
         return y + bias.to(dtype).view(1, -1, 1, 1)
 
     saved, blocks.conv2d = blocks.conv2d, conv2d
@@ -620,42 +725,16 @@ def run_tree(root):
     return out
 
 
-def yaml_phase(dev, work, launches_by_path, card):
-    """Phase 8: training from a YAML file (see the docstring)."""
+def run_instruments():
+    """Wrappers for a run of ``tools.train.main`` in this process: counts of
+    ``SRModel``'s train_step, validation_step and generate, each epoch's
+    host clock (from ``before_epoch`` to ``after_epoch``, synchronised),
+    the pipeline's waits, and the run's config, pipeline and model. Returns
+    (calls, seen, epochs, waits, instrumented), where ``instrumented(run)``
+    calls ``run()`` with the wrappers in place."""
     import simplesr_tpu_torch.train as train_pkg
-    from simplesr_tpu_torch.config import _yaml
     from simplesr_tpu_torch.data import DataPipeline
-    from simplesr_tpu_torch.data.png import read_rgb_u8
-    from simplesr_tpu_torch.ops.kernels import residual_trunk
-    from simplesr_tpu_torch.tools import train as train_tool
-    from simplesr_tpu_torch.train import SRModel, load_model
-
-    start("8 training from a YAML file: the production recipe")
-    t_phase = time.perf_counter()
-    spec = _yaml.load(RECIPE)
-    gallery = ROOT / "data/corpus/gallery"
-    reduced = {"train_data_paths": f"{spec['general']['train_data_paths']} -> {gallery} "
-                                   "(16 PNGs; the recipe's DIV2K is not in the repo)",
-               "results_save_path": "a temporary directory",
-               "num_epochs": f"{spec['general']['num_epochs']} -> {YAML_EPOCHS}",
-               "random_seed": "unset -> 0",
-               "paired_train": f"{spec['general'].pop('paired_train')} -> removed (the TPU's "
-                               "packed layout is not ported; it is exact, so the loss and "
-                               "gradients are those of the unpaired layout)"}
-    spec["general"].update(train_data_paths=str(gallery), num_epochs=YAML_EPOCHS,
-                           random_seed=0, results_save_path=str(work / "yaml_run"))
-    kept = {k: spec["general"][k] for k in ("batch_size", "crop_size", "num_crops",
-                                            "augmentations", "train_val_split", "scale")}
-    log(8, recipe=str(RECIPE.relative_to(ROOT)), reduced=reduced, kept=kept,
-        generator=spec["model"]["generator"], optimizer=spec["model"]["generator_optimizer"],
-        optimizer_config=spec["model"]["generator_optimizer_config"])
-
-    def write(name, **general):
-        path = work / name
-        run = copy.deepcopy(spec)
-        run["general"].update(general)
-        path.write_text(_yaml.dump(run))
-        return path
+    from simplesr_tpu_torch.train import SRModel
 
     calls = {"train_step": 0, "validation_step": 0, "generate": 0}
     seen = {}  # the run's objects and timings, filled by the wrappers
@@ -728,6 +807,45 @@ def yaml_phase(dev, work, launches_by_path, card):
             for owner, name, make in instruments:
                 stack.enter_context(patched(owner, name, make))
             return run()
+    return calls, seen, epochs, waits, instrumented
+
+
+def yaml_phase(dev, work, launches_by_path, card):
+    """Phase 8: training from a YAML file (see the docstring)."""
+    from simplesr_tpu_torch.config import _yaml
+    from simplesr_tpu_torch.data import DataPipeline
+    from simplesr_tpu_torch.data.png import read_rgb_u8
+    from simplesr_tpu_torch.tools import train as train_tool
+    from simplesr_tpu_torch.train import SRModel, load_model
+
+    start("8 training from a YAML file: the production recipe")
+    t_phase = time.perf_counter()
+    spec = _yaml.load(RECIPE)
+    gallery = ROOT / "data/corpus/gallery"
+    reduced = {"train_data_paths": f"{spec['general']['train_data_paths']} -> {gallery} "
+                                   "(16 PNGs; the recipe's DIV2K is not in the repo)",
+               "results_save_path": "a temporary directory",
+               "num_epochs": f"{spec['general']['num_epochs']} -> {YAML_EPOCHS}",
+               "random_seed": "unset -> 0",
+               "paired_train": f"{spec['general'].pop('paired_train')} -> removed (the TPU's "
+                               "packed layout is not ported; it is exact, so the loss and "
+                               "gradients are those of the unpaired layout)"}
+    spec["general"].update(train_data_paths=str(gallery), num_epochs=YAML_EPOCHS,
+                           random_seed=0, results_save_path=str(work / "yaml_run"))
+    kept = {k: spec["general"][k] for k in ("batch_size", "crop_size", "num_crops",
+                                            "augmentations", "train_val_split", "scale")}
+    log(8, recipe=str(RECIPE.relative_to(ROOT)), reduced=reduced, kept=kept,
+        generator=spec["model"]["generator"], optimizer=spec["model"]["generator_optimizer"],
+        optimizer_config=spec["model"]["generator_optimizer_config"])
+
+    def write(name, **general):
+        path = work / name
+        run = copy.deepcopy(spec)
+        run["general"].update(general)
+        path.write_text(_yaml.dump(run))
+        return path
+
+    calls, seen, epochs, waits, instrumented = run_instruments()
 
     t = time.perf_counter()
     decoded = [read_rgb_u8(p) for p in sorted(gallery.glob("*.png"))]
@@ -885,6 +1003,449 @@ def yaml_phase(dev, work, launches_by_path, card):
         it.close()
         log(8, profiler_10_steps_of_the_loop=trace, card=card)
 
+    return profile
+
+
+def gan_tree(ema):
+    """The save-dir tree of the JAX package's GAN run for 2 epochs
+    (tests/test_torch_gan_yaml.py holds the port's equal to it on the CPU)."""
+    tree = {p.replace("resnet", "gan") for p in JAX_RUN_TREE}
+    return tree | {"models/gan_gen_best_ema.msgpack"} if ema else tree
+
+
+def gan_yaml_run(phase, recipe, work, name, launches_by_path, card, pretrained=None):
+    """Run a GAN example YAML through ``tools.train.main`` in this process,
+    cut to the gallery, GAN_EPOCHS epochs, seed 0 and a temporary results
+    directory (and, given, a pretrained generator file); gate its exit, its
+    save-dir tree, its histories and its calls. Returns (model, pipeline,
+    config, the run's record, resume(epochs) -> the resumed model)."""
+    from simplesr_tpu_torch.config import _yaml
+    from simplesr_tpu_torch.tools import train as train_tool
+
+    spec = _yaml.load(recipe)
+    gallery = ROOT / "data/corpus/gallery"
+    reduced = {"train_data_paths": f"{spec['general']['train_data_paths']} -> {gallery} "
+                                   "(16 PNGs; DIV2K is not in the repo)",
+               "results_save_path": "a temporary directory",
+               "num_epochs": f"{spec['general']['num_epochs']} -> {GAN_EPOCHS}",
+               "random_seed": "unset -> 0",
+               "VGGLoss weights": "ImageNet -> the seeded random init (no vgg19.npz in the repo)"}
+    spec["general"].update(train_data_paths=str(gallery), num_epochs=GAN_EPOCHS, random_seed=0,
+                           results_save_path=str(work / name))
+    if pretrained is not None:
+        reduced["pretrained_model_path"] = (f"unset -> {pretrained.relative_to(ROOT)} (the "
+                                            "recipe's two-stage pipeline)")
+        spec["model"]["generator"]["pretrained_model_path"] = str(pretrained)
+    kept = {k: spec["general"].get(k) for k in ("batch_size", "crop_size", "num_crops",
+                                                "augmentations", "train_val_split", "scale",
+                                                "ema_decay")}
+    log(phase, recipe=str(recipe.relative_to(ROOT)), reduced=reduced, kept=kept,
+        generator=spec["model"]["generator"], discriminator=spec["model"]["discriminator"],
+        optimizers=[spec["model"]["generator_optimizer_config"],
+                    spec["model"]["discriminator_optimizer_config"]])
+    calls, seen, epochs, waits, instrumented = run_instruments()
+
+    def write(file, **general):
+        run = copy.deepcopy(spec)
+        run["general"].update(general)
+        (work / file).write_text(_yaml.dump(run))
+        return work / file
+
+    path = write(f"{name}.yaml")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    code, launches = counted(lambda: instrumented(lambda: train_tool.main([str(path)])))
+    run_s = time.perf_counter() - t
+    launches_by_path[f"{name}_yaml_x{GAN_EPOCHS}_epochs"] = launches
+    conf, pipeline, model = seen["conf"], seen["pipeline"], seen["model"]
+    per_epoch = -(-len(pipeline.train_imgs) * conf.num_crops * (1 + len(conf.augmentations))
+                  // conf.batch_size)
+    val_per_epoch = -(-len(pipeline.val_imgs) * conf.num_crops // conf.batch_size)
+    expected = {"train_step": GAN_EPOCHS * per_epoch,
+                "validation_step": GAN_EPOCHS * val_per_epoch, "generate": 2 + val_per_epoch}
+    ema = model.ema_parameters is not None
+    tree = run_tree(conf.save_path)
+    histories = model.histories()
+    values = [float(v) for h in histories.values() for vs in h.values() for v in vs]
+    epoch_s = [b - a for a, b in epochs]
+    epoch_wait_s = [sum(d for t, d in waits if a <= t < b) for a, b in epochs]
+    record = {"exit": code, "launches": launches, "calls": dict(calls), "expected": expected,
+              "split": [len(pipeline.train_imgs), len(pipeline.val_imgs)],
+              "epoch_generator_loss": histories["train_epoch"]["generator_loss"],
+              "epoch_discriminator_accuracy": histories["train_epoch"]["discriminator_accuracy"],
+              "run_s": run_s, "epoch_s": epoch_s,
+              "train_steps_per_s": [per_epoch / s for s in epoch_s],
+              "hr_mpix_per_s_end_to_end": [conf.batch_size * conf.crop_size[0]
+                                           * conf.crop_size[1] * per_epoch / 1e6 / s
+                                           for s in epoch_s],
+              "pipeline_wait_share_per_epoch": [w / s for w, s in zip(epoch_wait_s, epoch_s)],
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+              "save_dir_tree_as_jax": tree == gan_tree(ema), "histories_finite":
+              bool(np.all(np.isfinite(values)))}
+    log(phase, check="the run", **record, card=card)
+    if code != 0:
+        raise AssertionError(f"tools.train.main returned {code}")
+    if tree != gan_tree(ema):
+        raise AssertionError(f"save-dir tree differs from the JAX package's: "
+                             f"{sorted(tree ^ gan_tree(ema))}")
+    if not (record["histories_finite"] and "discriminator_accuracy" in histories["train_epoch"]
+            and len(histories["train_epoch"]["generator_loss"]) == GAN_EPOCHS):
+        raise AssertionError(f"histories: finite {record['histories_finite']}, "
+                             f"keys {sorted(histories['train_epoch'])}")
+    if dict(calls) != expected:
+        raise AssertionError(f"calls {dict(calls)}, expected {expected}")
+
+    def resume(total_epochs):
+        for key in calls:
+            calls[key] = 0
+        epochs.clear()
+        code = instrumented(lambda: train_tool.main([str(write(f"{name}_resume.yaml",
+                                                               num_epochs=total_epochs)),
+                                                     "--resume"]))
+        ok = (code == 0 and seen["resumed_at"] == GAN_EPOCHS and len(epochs) == 1
+              and calls["train_step"] == per_epoch and seen["conf"].save_path == conf.save_path
+              and len(seen["model"].histories()["train_epoch"]["generator_loss"])
+              == total_epochs)
+        log(phase, check=f"--resume with {total_epochs} epochs", exit=code,
+            resumed_at=seen["resumed_at"], epochs_run=len(epochs), calls=dict(calls), ok=ok)
+        if not ok:
+            raise AssertionError("resume did not continue the GAN run at its next epoch")
+        return seen["model"]
+
+    return model, pipeline, conf, record, resume
+
+
+def fresh_gan_model(yaml_path, dev):
+    """The GAN ``SRModel`` of a YAML file as its run starts (no pipeline,
+    no results directory)."""
+    from simplesr_tpu_torch.config import yaml_helper
+    from simplesr_tpu_torch.train import Discriminator, Generator, SRModel
+
+    spec = yaml_helper.load_yaml(str(yaml_path))
+    m = spec["model"]
+    return SRModel("gan", Generator.from_yaml(spec, device=dev), m["generator_optimizer"],
+                   m.get("generator_optimizer_config"), Discriminator.from_yaml(spec, device=dev),
+                   m["discriminator_optimizer"], m.get("discriminator_optimizer_config"),
+                   device=dev)
+
+
+def gan_step_timing(phase, model, batches, card):
+    """The GAN step's time (CUDA events, median of GAN_STEP_RUNS) and its
+    parts, timed as consecutive events: the generator's forward, the two
+    critic forwards, the VGG loss's forward, the other losses, the three
+    gradient passes (critic; generator's losses to sr; sr to the generator,
+    VGG's and the critic's backward inside) and the two optimizers."""
+    from simplesr_tpu_torch.losses import VGGLoss
+
+    gen, disc = model.generator_wrapper(), model.discriminator_wrapper()
+    module, critic = gen.model(), disc.model()
+    lr, hr = batches[0]
+    it = iter(batches * (2 + GAN_STEP_RUNS // len(batches)))
+    for _ in range(3):
+        model.train_step(*next(it))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: model.train_step(*next(it)), runs=GAN_STEP_RUNS, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    st = {}
+
+    def g_forward():
+        module.train()
+        st["sr"] = module(lr).float()
+
+    def d_forwards():
+        critic.train()
+        st["sr_in"] = st["sr"].detach().requires_grad_(True)
+        st["sr_c"], st["hr_c"] = critic(st["sr_in"]), critic(hr)
+
+    def vgg():
+        st["g_loss"] = 0.0
+        for f in gen._loss_functions:
+            if isinstance(f, VGGLoss):
+                st["g_loss"] = st["g_loss"] + f(hr, st["sr"])[0]
+
+    def other_losses():
+        st["d_loss"], _ = disc.calculate_loss(st["sr_c"], st["hr_c"], model._rng)
+        for f in gen._loss_functions:
+            if not isinstance(f, VGGLoss):
+                st["g_loss"] = st["g_loss"] + f(hr, st["sr"], st["hr_c"], st["sr_c"])[0]
+
+    def backward():
+        st["d_grads"] = torch.autograd.grad(st["d_loss"], model._d_params, retain_graph=True)
+        direct, through_d = torch.autograd.grad(st["g_loss"], [st["sr"], st["sr_in"]])
+        st["g_grads"] = torch.autograd.grad(st["sr"], model._params, direct + through_d)
+
+    def optimizers():
+        model.optimizer.apply(model._params, st["g_grads"])
+        model.discriminator_optimizer.apply(model._d_params, st["d_grads"])
+
+    parts = events_ms([("g_forward", g_forward), ("d_forwards", d_forwards), ("vgg_forward", vgg),
+                       ("other_losses", other_losses), ("backward", backward),
+                       ("optimizers", optimizers)], runs=10)
+    batch, hr_h, hr_w = hr.shape[:3]
+    result = {"step_ms": step_ms, "step_parts_ms": parts,
+              "hr_mpix_per_s": batch * hr_h * hr_w / 1e6 / (step_ms / 1e3),
+              "step_peak_mem_bytes": peak, "batch": list(hr.shape), "runs": GAN_STEP_RUNS}
+    log(phase, check="the GAN step's time", **result, card=card)
+
+    def profile():
+        """The profiler on 3 steps, after every timing of the script."""
+        log(phase, profiler_3_steps=profile_steps(lambda: model.train_step(*next(it))),
+            card=card)
+
+    return profile
+
+
+def srgan_trunk_check(model, batches):
+    """Phase 9's checks of the trunk kernel on ``model``'s GAN step, on each
+    of ``batches`` (see GAN_WIRING_TOL and GAN_RATIO_BATCHES)."""
+    from simplesr_tpu_torch.ops.kernels import residual_trunk, residual_trunk_reference
+    from simplesr_tpu_torch.ops.kernels.trunk import pack_trunk_weights
+
+    module, critic = model.generator(), model.discriminator_wrapper().model()
+
+    def packed():
+        return pack_trunk_weights(module._block_parameters())
+
+    def plain_trunk(h):
+        return residual_trunk_reference(h.permute(0, 2, 3, 1), packed()).permute(0, 3, 1, 2)
+
+    def plain_on_kernel_forward(h):
+        """The plain trunk under autograd with the kernel's output as its
+        value, exactly: kernel + (plain - plain)."""
+        plain = plain_trunk(h)
+        with torch.no_grad():
+            kernel = residual_trunk(h.detach().permute(0, 2, 3, 1), module.trunk_weights())
+        return kernel.permute(0, 3, 1, 2) + (plain - plain.detach())
+
+    def float64_trunk(h):
+        return trunk_float64(h.permute(0, 2, 3, 1), packed()).permute(0, 3, 1, 2)
+
+    def step(trunk, lr, hr):
+        """One GAN step's sr (with its graph), gradient at sr, critic
+        gradients and losses with ``trunk`` in the model (None: the model's
+        own, TrunkFunction); the critic's statistics and the label stream
+        left as they were."""
+        rng, buffers = model._rng.get_state(), copy.deepcopy(critic.state_dict())
+        if trunk is not None:
+            module._trunk = trunk
+        try:
+            module.train()
+            sr = module(lr).float()
+            sr_in, d_loss, g_loss, _, _ = model._gan_losses(sr, hr)
+            d_grads = torch.autograd.grad(d_loss, model._d_params, retain_graph=True)
+            direct, through_d = torch.autograd.grad(g_loss, [sr, sr_in])
+        finally:
+            if trunk is not None:
+                del module._trunk
+        model._rng.set_state(rng)
+        critic.load_state_dict(buffers)
+        return {"sr": sr, "grad_at_sr": direct + through_d, "D": d_grads,
+                "losses": torch.stack([d_loss, g_loss]).detach()}
+
+    def generator_grads(run, grad_at_sr):
+        return torch.autograd.grad(run["sr"], model._params, grad_at_sr, retain_graph=True)
+
+    def flat(tensors):
+        return torch.cat([t.flatten().double() for t in tensors])
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    names = [n for n, _ in module.named_parameters()]
+    sq = {k: {"kernel": 0.0, "plain": 0.0} for k in ("trunk", "G_same_grad_at_sr", "G", "D")}
+    per_batch = []
+    with patched(torch.backends.cudnn, "deterministic", lambda _: True):
+        for b, (lr, hr) in enumerate(batches):
+            # the trunk alone on this step's input
+            with torch.no_grad():
+                module.train()
+                h = module.head_act(module.head(lr.permute(0, 3, 1, 2).to(module.dtype)))
+                x = h.permute(0, 2, 3, 1).contiguous()
+                trunk = {"kernel": residual_trunk(x, module.trunk_weights()),
+                         "plain": residual_trunk_reference(x, packed())}
+                trunk_64 = trunk_float64(x, packed())
+            runs, launches = {}, {}
+            for name, fn in (("kernel", None), ("plain", plain_trunk),
+                             ("float64", float64_trunk)):
+                runs[name], launches[name] = counted(lambda: step(fn, lr, hr))
+            g_same = {name: generator_grads(r, runs["float64"]["grad_at_sr"])
+                      for name, r in runs.items()}
+            g_own = {name: generator_grads(r, r["grad_at_sr"]) for name, r in runs.items()}
+            vs_float64 = {key: {} for key in sq}
+            for name in ("kernel", "plain"):
+                for key, got, ref in (
+                        ("trunk", [trunk[name]], [trunk_64]),
+                        ("G_same_grad_at_sr", g_same[name], g_same["float64"]),
+                        ("G", g_own[name], g_own["float64"]),
+                        ("D", runs[name]["D"], runs["float64"]["D"])):
+                    vs_float64[key][name] = rel(flat(got), flat(ref))
+                    sq[key][name] += vs_float64[key][name] ** 2
+            k, p = runs["kernel"], runs["plain"]
+            tensors = {n: rel(a, b) for n, a, b in zip(names, g_same["kernel"], g_same["plain"])}
+            worst = max(tensors, key=tensors.get)
+            reading = {
+                "batch": b, "trunk_rel_fro": rel(trunk["kernel"].float(), trunk["plain"].float()),
+                "sr_rel_fro": rel(k["sr"].detach(), p["sr"].detach()),
+                "loss_rel": ((k["losses"] - p["losses"]).abs() / p["losses"].abs()).max().item(),
+                "same_grad_worst_tensor": [worst, tensors[worst]],
+                "grad_at_sr_rel_fro": rel(k["grad_at_sr"], p["grad_at_sr"]),
+                "D_rel_fro": rel(flat(k["D"]), flat(p["D"])),
+                "rel_fro_vs_float64": vs_float64, "launches": launches}
+            per_batch.append(reading)
+            if not (reading["trunk_rel_fro"] < TRAIN_GRAD_FRO_TOL
+                    and reading["sr_rel_fro"] < TRAIN_GRAD_FRO_TOL
+                    and reading["loss_rel"] < TRAIN_LOSS_REL_TOL
+                    and launches["kernel"]["trunk"] == 1 and launches["plain"]["trunk"] == 0):
+                raise AssertionError(f"the GAN step through the trunk kernel against the plain "
+                                     f"trunk: {reading}")
+            if b == 0:
+                # the wiring: TrunkFunction against the plain trunk given the
+                # kernel's forward values, in one step
+                twin, twin_launches = counted(lambda: step(plain_on_kernel_forward, lr, hr))
+                g_twin = generator_grads(twin, twin["grad_at_sr"])
+                wiring = {n: rel(a, b) for n, a, b in zip(names, g_own["kernel"], g_twin)}
+                wiring = {"G_worst_tensor": max(wiring.values()),
+                          "D": rel(flat(k["D"]), flat(twin["D"]))}
+                sr_equal = torch.equal(k["sr"], twin["sr"])
+                log(9, check="the GAN step's wiring: TrunkFunction vs the plain trunk's autograd "
+                    "on the kernel's forward values", sr_bit_equal=sr_equal, rel_fro=wiring,
+                    tol=GAN_WIRING_TOL, launches=twin_launches)
+                if not (sr_equal and max(wiring.values()) < GAN_WIRING_TOL):
+                    raise AssertionError(f"GAN wiring through TrunkFunction: {wiring}, "
+                                         f"sr equal {sr_equal}")
+                del twin, g_twin
+            del runs, g_same, g_own
+    ratio = {key: (v["kernel"] / v["plain"]) ** 0.5 if v["plain"] > 0 else float("inf")
+             for key, v in sq.items()}
+    log(9, check="the GAN step: the trunk kernel vs the plain trunk", per_batch=per_batch,
+        tol_rel_fro=TRAIN_GRAD_FRO_TOL, tol_loss_rel=TRAIN_LOSS_REL_TOL,
+        kernel_over_plain_vs_float64=ratio, ratio_gated=list(GAN_RATIO_GATED),
+        ratio_tol=TRUNK_CHAIN_FRO_RATIO,
+        rel_fro_vs_float64={key: {n: (v[n] / len(batches)) ** 0.5 for n in v}
+                            for key, v in sq.items()})
+    if not all(ratio[key] <= TRUNK_CHAIN_FRO_RATIO for key in GAN_RATIO_GATED):
+        raise AssertionError(f"the trunk kernel's GAN gradients further from float64 sums than "
+                             f"the plain trunk's: {ratio}")
+
+
+def srgan_phase(dev, work, launches_by_path, card):
+    """Phase 9: the SRGAN stage from its YAML file (see the docstring)."""
+    from simplesr_tpu_torch.train import load_model
+
+    start("9 the SRGAN stage from its YAML file")
+    t_phase = time.perf_counter()
+    model, pipeline, conf, record, resume = gan_yaml_run(
+        9, SRGAN_RECIPE, work, "srgan", launches_by_path, card, pretrained=FLAGSHIP)
+    launches, calls = record["launches"], record["calls"]
+    if not (model.generator().uses_trunk_kernel and launches["trunk"] == sum(calls.values())
+            and launches["patches"] == 0):
+        raise AssertionError(f"trunk launches {launches} for calls {calls}")
+
+    it = pipeline.train_batch_generator()
+    batches = [next(it) for _ in range(4)]
+    it.close()
+    lr, hr = batches[0]
+
+    # the _best file against the module that trained it
+    x = lr[:4]
+    got = model.generate(x)
+    with torch.inference_mode():
+        ref = load_model(Path(conf.model_dir) / "gan_gen_best.msgpack", device=dev)(x)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"gan_gen_best vs generate: {(got - ref).abs().max().item()}")
+
+    # the stage's first step, from the flagship: two epochs of the recipe
+    # with random-init VGG can saturate the generator's tanh, and every
+    # gradient of the trained one is then 0
+    srgan_trunk_check(fresh_gan_model(work / "srgan.yaml", dev), batches[:GAN_RATIO_BATCHES])
+
+    # the critic's running statistics move in the discriminator branch only
+    module, critic = model.generator(), model.discriminator_wrapper().model()
+    twin = copy.deepcopy(critic).train()
+    with torch.no_grad():
+        module.train()
+        twin(module(lr).float())
+        twin(hr)
+    (_, step_launches) = counted(lambda: model.train_step(lr, hr))
+    stats = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+             for (n, a), b in zip(critic.named_buffers(), twin.buffers())
+             if n.endswith(("running_mean", "running_var"))}
+    log(9, check="critic statistics after one step vs two training-mode calls",
+        max_rel=max(stats.values()), tol=D_STATS_REL_TOL, step_launches=step_launches)
+    if not max(stats.values()) < D_STATS_REL_TOL or step_launches["trunk"] != 1:
+        raise AssertionError(f"critic statistics {stats}, step launches {step_launches}")
+
+    resumed = resume(GAN_EPOCHS + 1)
+    profile = gan_step_timing(9, resumed, batches, card)
+    log(9, phase_s=time.perf_counter() - t_phase)
+    return profile
+
+
+def esrgan_phase(dev, work, launches_by_path, card, tiled_png):
+    """Phase 10: ESRGAN from its YAML file, and its model files served
+    (see the docstring)."""
+    from simplesr_tpu_torch.data.png import read_img
+    from simplesr_tpu_torch.eval.evaluation import _as_predictor
+    from simplesr_tpu_torch.models import build_generator_model
+    from simplesr_tpu_torch.tools.upscale import upscale_files
+    from simplesr_tpu_torch.train import load_payload
+    from simplesr_tpu_torch.train.convert import from_flax_variables
+
+    start("10 ESRGAN from its YAML file, its model files served")
+    t_phase = time.perf_counter()
+    model, pipeline, conf, record, _ = gan_yaml_run(10, ESRGAN_RECIPE, work, "esrgan",
+                                                    launches_by_path, card)
+    if record["launches"] != {"trunk": 0, "patches": 0}:
+        raise AssertionError(f"the RRDB run launched {record['launches']}")
+
+    files = {label: Path(conf.model_dir) / f"gan_gen_{label}.msgpack"
+             for label in ("best", "best_ema")}
+    out_dir = work / "esrgan_out"
+    served = {}
+    for label, route, png in (("best", "untiled", GALLERY_PNG),
+                              ("best_ema", "untiled", GALLERY_PNG),
+                              ("best_ema", "tiled", tiled_png)):
+        path = files[label]
+        key = f"esrgan_{label}_upscale_files_{route}"
+        t = time.perf_counter()
+        (written,), launches = counted(lambda: upscale_files(
+            path, [png], out_dir / label, 4, device=dev))
+        launches_by_path[key] = launches
+        served[key] = {**launches, "seconds": time.perf_counter() - t}
+        want = {"trunk": 0, "patches": int(route == "tiled")}
+        if launches != want:
+            raise AssertionError(f"{key}: launches {launches}, expected {want}")
+    predictors = {label: _as_predictor(path, device=dev) for label, path in files.items()}
+    small = torch.from_numpy(read_img(GALLERY_PNG)[:32, :40] / 255.0)[None].float()
+    outs = {label: p(small.to(dev)).cpu() for label, p in predictors.items()}
+    finite = all(torch.isfinite(o).all().item() for o in outs.values())
+    ema_differs = files["best"].read_bytes() != files["best_ema"].read_bytes() and \
+        not torch.equal(outs["best"], outs["best_ema"])
+    config, variables = load_payload(files["best_ema"])
+    f32 = build_generator_model(**dict(config, dtype="float32"), device="cpu")
+    f32.load_state_dict(from_flax_variables(f32, variables))
+    with torch.inference_mode():
+        exact = f32(small)
+    cpu = _as_predictor(files["best_ema"], device="cpu")(small)
+    card_vs_cpu = {"max_abs": (outs["best_ema"] - cpu).abs().max().item(),
+                   "card_vs_float32_mean_abs": (outs["best_ema"] - exact).abs().mean().item(),
+                   "cpu_vs_float32_mean_abs": (cpu - exact).abs().mean().item()}
+    log(10, check="serving the model files", launches=served, finite=finite,
+        ema_file_differs=ema_differs, card_vs_cpu=card_vs_cpu,
+        tol_max_abs=RRDB_ROUTE_MAX_ABS_TOL, mean_ratio_tol=RRDB_MEAN_RATIO)
+    if not (finite and ema_differs):
+        raise AssertionError(f"ESRGAN files: finite {finite}, EMA differs {ema_differs}")
+    if not (card_vs_cpu["max_abs"] < RRDB_ROUTE_MAX_ABS_TOL
+            and card_vs_cpu["card_vs_float32_mean_abs"]
+            <= RRDB_MEAN_RATIO * card_vs_cpu["cpu_vs_float32_mean_abs"]):
+        raise AssertionError(f"ESRGAN on the card vs the CPU: {card_vs_cpu}")
+
+    it = pipeline.train_batch_generator()
+    batches = [next(it) for _ in range(4)]
+    it.close()
+    profile = gan_step_timing(10, model, batches, card)
+    log(10, phase_s=time.perf_counter() - t_phase)
     return profile
 
 
@@ -1163,9 +1724,11 @@ def main(work):
 
     profile_training = train_phase(dev, work, gen, launches_by_path, smi_line)
     profile_yaml_run = yaml_phase(dev, work, launches_by_path, smi_line)
-    # the profilers of phases 7 and 8 last, after every timing
-    profile_training()
-    profile_yaml_run()
+    profile_srgan = srgan_phase(dev, work, launches_by_path, smi_line)
+    profile_esrgan = esrgan_phase(dev, work, launches_by_path, smi_line, tiled_png)
+    # the profilers of phases 7 to 10 last, after every timing
+    for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan):
+        profile()
 
     def total(key):
         return sum(counts[key] for counts in launches_by_path.values())

@@ -5,7 +5,8 @@ symlink, four TensorBoard writers (``torch.utils.tensorboard`` where it can
 be imported, else none, as the JAX package does without tensorboardX),
 data-dir checks, test-originals matching, config mutation for sweeps, and
 ``from_yaml``, which builds the config, the pipeline and, for training, the
-SRModel on ``device``.
+SRModel on ``device`` (in GAN mode when the YAML has a ``discriminator``
+section).
 """
 
 import copy
@@ -162,10 +163,9 @@ class ConfigUtil:
         """Training-mode config. The arguments are the JAX package's, so that
         its YAML files load unchanged; ``SRModel.init`` raises
         ``NotImplementedError`` for those the port has not ported yet
-        (``data_parallel`` on more than one device, ``ema_*``,
-        ``grad_accum_steps``, ``fsdp``, ``distill``, ``tensor_parallel``,
-        ``pipeline_parallel``, ``paired_train`` > 1), each naming its
-        ROADMAP.md item. ``async_checkpointing`` changes nothing: the port
+        (``data_parallel`` on more than one device, ``fsdp``, ``distill``,
+        ``tensor_parallel``, ``pipeline_parallel``, ``paired_train`` > 1),
+        each naming its ROADMAP.md item. ``async_checkpointing`` changes nothing: the port
         writes its checkpoints at once. ``resume=True`` or ``"latest"``
         reuses the latest run's save dir and continues it from its resume
         point (see run_training); a run name (or a path) under
@@ -282,16 +282,13 @@ class ConfigUtil:
         (config, pipeline, sr_model) for training, (config, pipeline) for
         evaluation and inference."""
         from simplesr_tpu_torch.data import DataPipeline
-        from simplesr_tpu_torch.train import Generator, SRModel
-        from simplesr_tpu_torch.train.sr_model import GAN_ITEM, not_ported
+        from simplesr_tpu_torch.train import Discriminator, Generator, SRModel
 
         device = resolve_device(device)
         conf_yaml = yaml_helper.load_yaml(config_yaml_path)
         operation = conf_yaml["general"]["operation"]
 
         if operation == "training":
-            if "discriminator" in conf_yaml["model"]:
-                raise not_ported("a discriminator (the GAN mode)", GAN_ITEM)
             conf_yaml = yaml_helper.prepare_for_training_config(conf_yaml)
             conf = ConfigUtil.training_config(**conf_yaml["general"])
         elif operation == "evaluation":
@@ -305,10 +302,17 @@ class ConfigUtil:
             raise ValueError(f"Operation {operation} not supported")
 
         pipeline = DataPipeline.from_config(conf, device=device)
+        model = conf_yaml["model"]
         generator = Generator.from_yaml(conf_yaml, device=device)
+        discriminator = discriminator_optimizer = discriminator_optimizer_config = None
+        if "discriminator" in model:
+            discriminator = Discriminator.from_yaml(conf_yaml, device=device)
+            discriminator_optimizer = model["discriminator_optimizer"]
+            discriminator_optimizer_config = model.get("discriminator_optimizer_config")
         sr_model = SRModel.init(
-            conf, generator, conf_yaml["model"]["generator_optimizer"],
-            conf_yaml["model"].get("generator_optimizer_config"), device=device)
+            conf, generator, model["generator_optimizer"],
+            model.get("generator_optimizer_config"), discriminator, discriminator_optimizer,
+            discriminator_optimizer_config, device=device)
         return conf, pipeline, sr_model
 
     # ------------------------------------------------------------- internals

@@ -17,25 +17,30 @@ import torch
 # bf16 at every activation.
 OUTPUT_CONV_TF32 = True
 
-_CUDNN_FLAG_LOCK = threading.Lock()
+_CUDNN_FLAG_LOCK = threading.RLock()  # a nested context restores its own value
 
 
 @contextlib.contextmanager
-def model_conv_precision(device):
-    """On a CUDA device, cuDNN's TF32 flag set to ``OUTPUT_CONV_TF32`` for
-    the convolutions launched inside. The flag is global and read when a
-    conv is launched, so a lock keeps two threads from restoring each
-    other's value. Elsewhere, nothing."""
+def cudnn_tf32(device, enabled):
+    """On a CUDA device, cuDNN's TF32 flag set to ``enabled`` for the
+    convolutions launched inside. The flag is global and read when a conv is
+    launched, so a lock keeps two threads from restoring each other's value.
+    Elsewhere, nothing."""
     if torch.device(device).type != "cuda":
         yield
         return
     with _CUDNN_FLAG_LOCK:
         saved = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = OUTPUT_CONV_TF32
+        torch.backends.cudnn.allow_tf32 = enabled
         try:
             yield
         finally:
             torch.backends.cudnn.allow_tf32 = saved
+
+
+def model_conv_precision(device):
+    """``cudnn_tf32`` at the generators' ``OUTPUT_CONV_TF32``."""
+    return cudnn_tf32(device, OUTPUT_CONV_TF32)
 
 
 @dataclasses.dataclass(frozen=True)

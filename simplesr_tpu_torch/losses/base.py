@@ -6,7 +6,28 @@ names to scalar tensors that the trainer accumulates. ``loss_weight`` counts
 only when ``weighted=True``; the metrics hold the unweighted loss under the
 functor's name and, when weighted, ``weighted_<name>``. A bare callable that
 returns a scalar is adapted to the protocol by ``adapt_generator_loss``.
+
+``bce_from_probs`` follows tf.keras's rule (probabilities clipped to
+[1e-7, 1 - 1e-7], ``log1p(-p)`` for the negative class), not torch's
+``F.binary_cross_entropy``, which clamps each log at -100.
 """
+
+import torch
+
+# tf.keras.losses.BinaryCrossentropy clips probabilities by this epsilon.
+_BCE_EPS = 1e-7
+
+
+def bce_from_probs(labels, probs):
+    """Mean binary cross-entropy on probabilities, tf.keras's clip."""
+    p = probs.clamp(_BCE_EPS, 1.0 - _BCE_EPS)
+    return -(labels * torch.log(p) + (1.0 - labels) * torch.log1p(-p)).mean()
+
+
+def bce_from_logits(labels, logits):
+    """Mean sigmoid cross-entropy on logits, in the stable form."""
+    return (logits.clamp_min(0.0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
 
 
 class Loss:

@@ -1,10 +1,14 @@
-"""Model family. SRResNet is ported; RRDB/ESRGAN, the discriminator and VGG
-features are not yet (ROADMAP.md, Queue 1)."""
+"""Model family: SRResNet, RRDB (ESRGAN), the discriminator and VGG
+features."""
 
 from simplesr_tpu_torch.core.device import resolve_device
 from simplesr_tpu_torch.core.dtypes import dtype_from_name
 from simplesr_tpu_torch.models.blocks import ConvLayer, PReLU, SubpixelConvBlock
+from simplesr_tpu_torch.models.discriminator import Discriminator
+from simplesr_tpu_torch.models.rrdb import DenseBlock, RRDBBlock, RRDBNet
 from simplesr_tpu_torch.models.srresnet import ResBlock, SRResNet
+from simplesr_tpu_torch.models.vgg import (VGGFeatures, init_vgg_params, load_vgg_weights_npz,
+                                           vgg_layer_names)
 
 
 def build_generator_model(upsample_factor, architecture="srresnet", num_blocks=16,
@@ -13,21 +17,26 @@ def build_generator_model(upsample_factor, architecture="srresnet", num_blocks=1
                           dtype=None, growth_channels=None, remat=False,
                           device="cuda"):
     """Build a generator from a saved model's config, in eval mode, on
-    ``device``. Takes the same keys as simplesr_tpu's builder; the RRDB keys
-    are accepted and unused until RRDB is ported, and ``remat`` (memory
-    against recompute in the backward) changes nothing: the kernel's trunk
-    recomputes in its backward anyway, and other models store their
-    activations."""
+    ``device``. Takes the same keys as simplesr_tpu's builder. ``remat``
+    recomputes each RRDB block in the backward (``torch.utils.checkpoint``);
+    for SRResNet it changes nothing: the kernel's trunk recomputes in its
+    backward anyway, and the other SRResNets store their activations."""
     device = resolve_device(device)
+    dtype = dtype_from_name(dtype)
     if architecture == "rrdb":
-        raise NotImplementedError(
-            "RRDB / ESRGAN is not ported yet: ROADMAP.md, Queue 1, GAN and RRDB family")
-    if architecture != "srresnet":
+        module = RRDBNet(upsample_factor=upsample_factor, num_filters=num_filters,
+                         num_rrdb_blocks=num_blocks, num_dense_blocks=num_dense_blocks,
+                         num_convs=num_convs, kernel_size=kernel_size,
+                         residual_scaling=residual_scaling, dtype=dtype,
+                         growth_channels=growth_channels, remat=remat)
+    elif architecture == "srresnet":
+        module = SRResNet(upsample_factor=upsample_factor, num_filters=num_filters,
+                          num_res_blocks=num_blocks, batch_norm=batch_norm, dtype=dtype)
+    else:
         raise ValueError("architecture not recognized")
-    module = SRResNet(upsample_factor=upsample_factor, num_filters=num_filters,
-                      num_res_blocks=num_blocks, batch_norm=batch_norm,
-                      dtype=dtype_from_name(dtype))
     return module.to(device).eval()
 
-__all__ = ["SRResNet", "ResBlock", "PReLU", "ConvLayer", "SubpixelConvBlock",
-           "build_generator_model"]
+
+__all__ = ["SRResNet", "ResBlock", "RRDBNet", "RRDBBlock", "DenseBlock", "Discriminator",
+           "VGGFeatures", "vgg_layer_names", "load_vgg_weights_npz", "init_vgg_params",
+           "PReLU", "ConvLayer", "SubpixelConvBlock", "build_generator_model"]

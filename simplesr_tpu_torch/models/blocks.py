@@ -7,18 +7,39 @@ returns float32, as flax's ``nn.BatchNorm``: in training mode it normalises
 by the batch's mean and biased variance (E[x^2] - E[x]^2, clipped at 0) and
 moves the running statistics by them; in eval mode it uses the running
 statistics. PReLU casts its per-channel slope to the input's dtype.
+
+A strided convolution pads as XLA's ``SAME`` does: the total padding
+``max((out - 1) * stride + k - in, 0)`` split with the smaller half first, so
+a stride-2 3x3 conv on an even side pads (0, 1), where torch's
+``padding=1`` would pad (1, 1).
 """
+
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from simplesr_tpu_torch.core.dtypes import cudnn_tf32
 from simplesr_tpu_torch.ops.shuffle import depth_to_space_nchw
 
 
-def conv2d(x, weight, bias, dtype):
-    """Stride-1 SAME convolution (odd kernel) in ``dtype``, flax numerics."""
-    y = F.conv2d(x.to(dtype), weight.to(dtype), padding=weight.shape[-1] // 2)
+def same_padding(size, kernel_size, stride):
+    """XLA's SAME padding of one spatial side: (before, after)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel_size - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x, weight, bias, dtype, stride=1):
+    """SAME convolution in ``dtype``, flax numerics (the bias added after
+    the convolution, in ``dtype``)."""
+    x, k = x.to(dtype), weight.shape[-1]
+    if stride == 1 and k % 2:
+        y = F.conv2d(x, weight.to(dtype), padding=k // 2)
+    else:
+        (top, bottom), (left, right) = (same_padding(n, k, stride) for n in x.shape[-2:])
+        y = F.conv2d(F.pad(x, (left, right, top, bottom)), weight.to(dtype), stride=stride)
     return y + bias.to(dtype).view(1, -1, 1, 1)
 
 
@@ -27,6 +48,54 @@ def glorot_conv(in_features, features, kernel_size):
     nn.init.xavier_uniform_(conv.weight)  # Keras / flax glorot_uniform
     nn.init.zeros_(conv.bias)
     return conv
+
+
+def scaled_he_normal_(weight, scale=0.2):
+    """flax's ``variance_scaling(scale, "fan_in", "truncated_normal")``, the
+    RRDB and discriminator kernels' initialiser: a normal truncated at two
+    standard deviations, rescaled to variance ``scale / fan_in``."""
+    fan_in = weight[0].numel()  # (out, in, kh, kw) or (out, in)
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def he_conv(in_features, features, kernel_size=3, scale=0.2):
+    """A conv with ``scaled_he_normal_`` kernels and zero biases."""
+    conv = nn.Conv2d(in_features, features, kernel_size, padding=kernel_size // 2)
+    scaled_he_normal_(conv.weight, scale)
+    nn.init.zeros_(conv.bias)
+    return conv
+
+
+class _PinnedConv(torch.autograd.Function):
+    """A float32 SAME convolution whose forward and backward both run with
+    cuDNN's TF32 flag at ``tf32``: autograd runs a backward after the
+    forward's flag has been restored."""
+
+    @staticmethod
+    def forward(ctx, h, weight, bias, tf32):
+        ctx.save_for_backward(h, weight)
+        ctx.tf32 = tf32
+        with cudnn_tf32(h.device, tf32):
+            return F.conv2d(h, weight, bias, padding=weight.shape[-1] // 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, weight = ctx.saved_tensors
+        pad = weight.shape[-1] // 2
+        with cudnn_tf32(h.device, ctx.tf32):
+            grads = torch.ops.aten.convolution_backward(
+                grad, h, weight, [weight.shape[0]], [1, 1], [pad, pad], [1, 1], False,
+                [0, 0], 1, list(ctx.needs_input_grad[:3]))
+        return (*grads, None)
+
+
+def pinned_conv2d(h, weight, bias, tf32):
+    """A stride-1 SAME float32 conv (odd kernel) whose forward and backward
+    run with TF32 at ``tf32`` on a CUDA device, whatever torch's global flag
+    says."""
+    return _PinnedConv.apply(h.float(), weight.float(), bias.float(), tf32)
 
 
 class PReLU(nn.Module):
@@ -45,16 +114,19 @@ class ConvLayer(nn.Module):
     """Conv2D, then BatchNorm when ``batch_norm``."""
 
     def __init__(self, in_features, features, kernel_size=3, batch_norm=False,
-                 momentum=0.8, dtype=torch.float32):
+                 momentum=0.8, dtype=torch.float32, stride=1, he_scale=None):
         super().__init__()
         self.dtype = dtype
-        self.conv = glorot_conv(in_features, features, kernel_size)
+        self.stride = stride
+        # glorot-uniform kernels, or scaled he-normal ones at ``he_scale``
+        self.conv = glorot_conv(in_features, features, kernel_size) if he_scale is None \
+            else he_conv(in_features, features, kernel_size, he_scale)
         # Keras momentum m keeps m of the running average; torch's keeps 1 - m.
         self.bn = nn.BatchNorm2d(features, eps=1e-3, momentum=1.0 - momentum) \
             if batch_norm else None
 
     def forward(self, x):
-        y = conv2d(x, self.conv.weight, self.conv.bias, self.dtype)
+        y = conv2d(x, self.conv.weight, self.conv.bias, self.dtype, self.stride)
         if self.bn is not None:
             y = batch_norm(self.bn, y.float())
         return y
@@ -81,11 +153,13 @@ class SubpixelConvBlock(nn.Module):
     when ``activation``."""
 
     def __init__(self, channels, upsample_factor=2, activation=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, he_scale=None):
         super().__init__()
         self.dtype = dtype
         self.upsample_factor = upsample_factor
-        self.conv = glorot_conv(channels, channels * upsample_factor ** 2, 3)
+        out = channels * upsample_factor ** 2
+        self.conv = glorot_conv(channels, out, 3) if he_scale is None \
+            else he_conv(channels, out, 3, he_scale)
         self.act = PReLU(channels) if activation else None
 
     def forward(self, x):

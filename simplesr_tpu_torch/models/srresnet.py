@@ -21,10 +21,10 @@ kernel, like the TPU kernel, takes C = 64 bf16 BN-free blocks only.
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from simplesr_tpu_torch.core.dtypes import model_conv_precision
-from simplesr_tpu_torch.models.blocks import ConvLayer, PReLU, SubpixelConvBlock, glorot_conv
+from simplesr_tpu_torch.core.dtypes import OUTPUT_CONV_TF32
+from simplesr_tpu_torch.models.blocks import (ConvLayer, PReLU, SubpixelConvBlock, glorot_conv,
+                                              pinned_conv2d)
 from simplesr_tpu_torch.ops.kernels.trunk import (
     KERNEL_WIDTH,
     TrunkFunction,
@@ -34,30 +34,9 @@ from simplesr_tpu_torch.ops.kernels.trunk import (
 _ALLOWED_SCALES = (2, 4, 8)
 
 
-class _OutputConv(torch.autograd.Function):
-    """A float32 SAME convolution whose forward and backward both run at the
-    model's precision (``model_conv_precision``): autograd runs a backward
-    after the forward's flag has been restored."""
-
-    @staticmethod
-    def forward(ctx, h, weight, bias):
-        ctx.save_for_backward(h, weight)
-        with model_conv_precision(h.device):
-            return F.conv2d(h, weight, bias, padding=weight.shape[-1] // 2)
-
-    @staticmethod
-    def backward(ctx, grad):
-        h, weight = ctx.saved_tensors
-        pad = weight.shape[-1] // 2
-        with model_conv_precision(h.device):
-            return torch.ops.aten.convolution_backward(
-                grad, h, weight, [weight.shape[0]], [1, 1], [pad, pad], [1, 1], False,
-                [0, 0], 1, list(ctx.needs_input_grad))
-
-
 def output_conv(h, conv):
     """``conv`` in float32 on ``h``, at the model's precision on CUDA."""
-    return _OutputConv.apply(h.float(), conv.weight.float(), conv.bias.float())
+    return pinned_conv2d(h, conv.weight, conv.bias, OUTPUT_CONV_TF32)
 
 
 class ResBlock(nn.Module):
@@ -133,10 +112,15 @@ class SRResNet(nn.Module):
         out = TrunkFunction.apply(h.permute(0, 2, 3, 1), self.trunk_weights(params), *params)
         return out.permute(0, 3, 1, 2)
 
-    def forward(self, x):
+    def features(self, x):
+        """Head, residual trunk, trunk conv and global skip of (B, H, W, 3)
+        ``x`` in [0, 1], NCHW."""
         h = x.permute(0, 3, 1, 2).to(self.dtype)
         h = skip = self.head_act(self.head(h))
-        h = self.trunk_out(self._trunk(h)) + skip
+        return self.trunk_out(self._trunk(h)) + skip
+
+    def forward(self, x):
+        h = self.features(x)
         for block in self.upsample:
             h = block(h)
         return torch.tanh(output_conv(h, self.out)).permute(0, 2, 3, 1).contiguous()

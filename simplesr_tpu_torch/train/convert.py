@@ -1,41 +1,55 @@
 """Carrying variables between simplesr_tpu's (flax) layout and the port's
 modules.
 
-``from_flax_variables`` maps the nested ``{"params", "batch_stats"}`` tree of
-an SRResNet to a ``state_dict`` of ``models.SRResNet``: module names follow a
-fixed table, conv kernels go from HWIO to OIHW, BatchNorm's scale / bias /
-mean / var become weight / bias / running_mean / running_var.
-``to_flax_variables`` is its inverse, with every map's keys in sorted order
-(``batch_stats`` before ``params``), as ``jax.device_get`` hands a tree back
-and so as simplesr_tpu's ``save_model`` writes it.
+A ``state_dict`` key names its flax variable: each dotted part is a flax
+module name, after the aliases below for the SRResNet's and the blocks'
+own names (``blocks.3.conv2.conv.weight`` is ``ResBlock_3/ConvLayer_1/
+Conv_0/kernel``). The RRDB generator, the discriminator and VGG name their
+modules as flax does (``RRDBBlock_0.DenseBlock_1.Conv_2``, ``Dense_0``,
+``block5_conv4``). Conv kernels go HWIO <-> OIHW and Dense kernels
+(in, out) <-> (out, in); BatchNorm's scale / bias / mean / var are weight /
+bias / running_mean / running_var. ``to_flax_variables`` writes every map's
+keys in sorted order (``batch_stats`` before ``params``), as
+``jax.device_get`` hands a tree back and so as simplesr_tpu's
+``save_model`` writes it.
 """
-
-import re
 
 import numpy as np
 import torch
 
-# flax module name -> (torch name, kind of the module)
-_TOP = [
-    (r"ConvLayer_0", "head", "conv_layer"),
-    (r"PReLU_0", "head_act", "prelu"),
-    (r"ResBlock_(\d+)", r"blocks.\1", "res_block"),
-    (r"ConvLayer_1", "trunk_out", "conv_layer"),
-    (r"SubpixelConvBlock_(\d+)", r"upsample.\1", "subpixel"),
-    (r"Conv_0", "out", "conv"),
-]
-_CHILDREN = {
-    "conv_layer": {"Conv_0": ("conv", "conv"), "BatchNorm_0": ("bn", "bn")},
-    "res_block": {"ConvLayer_0": ("conv1", "conv_layer"), "PReLU_0": ("act", "prelu"),
-                  "ConvLayer_1": ("conv2", "conv_layer")},
-    "subpixel": {"Conv_0": ("conv", "conv"), "PReLU_0": ("act", "prelu")},
-}
-_LEAVES = {
-    "conv": {"kernel": "weight", "bias": "bias"},
-    "bn": {"scale": "weight", "bias": "bias", "mean": "running_mean",
-           "var": "running_var"},
-    "prelu": {"alpha": "alpha"},
-}
+# the port's module names -> flax's
+_ALIASES = {"head": "ConvLayer_0", "head_act": "PReLU_0", "trunk_out": "ConvLayer_1",
+            "out": "Conv_0", "conv1": "ConvLayer_0", "conv2": "ConvLayer_1",
+            "conv": "Conv_0", "bn": "BatchNorm_0", "act": "PReLU_0"}
+# a list of the port's modules -> the prefix of flax's numbered names
+_INDEXED = {"blocks": "ResBlock_", "upsample": "SubpixelConvBlock_"}
+# state-dict leaf -> (flax collection, flax leaf), by the tensor's rank
+_LEAVES = {"bias": ("params", "bias"), "alpha": ("params", "alpha"),
+           "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def _flax_path(key, ndim):
+    """A state-dict key and its tensor's rank -> (collection, flax path), or
+    None for a key that flax does not keep (BatchNorm's
+    num_batches_tracked)."""
+    *parts, leaf = key.split(".")
+    if leaf == "num_batches_tracked":
+        return None
+    if leaf == "weight":  # BatchNorm's scale (rank 1), else a conv or Dense kernel
+        where = ("params", "scale" if ndim == 1 else "kernel")
+    elif leaf in _LEAVES:
+        where = _LEAVES[leaf]
+    else:
+        raise KeyError(f"no flax variable for {key!r}")
+    path, i = [], 0
+    while i < len(parts):
+        if parts[i] in _INDEXED and i + 1 < len(parts) and parts[i + 1].isdigit():
+            path.append(_INDEXED[parts[i]] + parts[i + 1])
+            i += 2
+        else:
+            path.append(_ALIASES.get(parts[i], parts[i]))
+            i += 1
+    return where[0], path + [where[1]]
 
 
 def _tensor(leaf):
@@ -47,81 +61,55 @@ def _tensor(leaf):
     return torch.from_numpy(np.array(arr))
 
 
-def _top(name):
-    for pattern, torch_name, kind in _TOP:
-        if re.fullmatch(pattern, name):
-            return re.sub(pattern, torch_name, name), kind
-    raise KeyError(f"unknown SRResNet module {name!r}")
-
-
-def _walk(tree, prefix, kind, out):
-    if kind in _LEAVES:
-        for leaf_name, leaf in tree.items():
-            if leaf_name not in _LEAVES[kind]:
-                raise KeyError(f"unknown {kind} variable {prefix}{leaf_name}")
-            t = _tensor(leaf)
-            if kind == "conv" and leaf_name == "kernel":
-                t = t.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
-            out[prefix + _LEAVES[kind][leaf_name]] = t
-        return
-    for name, sub in tree.items():
-        if name not in _CHILDREN[kind]:
-            raise KeyError(f"unknown {kind} submodule {prefix}{name}")
-        torch_name, sub_kind = _CHILDREN[kind][name]
-        _walk(sub, f"{prefix}{torch_name}.", sub_kind, out)
-
-
-def from_flax_variables(variables):
-    """An SRResNet's flax variables -> the port's ``state_dict`` (CPU
-    tensors in the leaves' dtypes)."""
-    state = {}
-    for collection in ("params", "batch_stats"):
-        for name, sub in variables.get(collection, {}).items():
-            torch_name, kind = _top(name)
-            _walk(sub, torch_name + ".", kind, state)
-    for key in [k for k in state if k.endswith(".running_mean")]:
-        state[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
-    return state
-
-
-_BATCH_STATS = {"running_mean", "running_var"}
-
-
 def _numpy_or_tensor(t):
     """A CPU copy: numpy where numpy has the dtype, else (bfloat16) a tensor."""
     t = t.detach().cpu().contiguous()
     return t.clone() if t.dtype == torch.bfloat16 else t.numpy().copy()
 
 
-def _flax_top(parts):
-    """The flax name and kind of the top-level module that a split
-    state-dict key starts with, and the rest of the key."""
-    for pattern, torch_name, kind in _TOP:
-        if torch_name.endswith(r".\1"):  # an indexed module: blocks.i, upsample.i
-            if parts[0] == torch_name[:-3] and len(parts) > 1 and parts[1].isdigit():
-                return pattern.replace(r"(\d+)", parts[1]), kind, parts[2:]
-        elif parts[0] == torch_name:
-            return pattern, kind, parts[1:]
-    return None, None, None
+def _leaves(tree, prefix):
+    """The paths of a tree's leaves (an empty map below the collections
+    counts as one)."""
+    if not tree and len(prefix) > 1:
+        yield prefix
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
 
 
-def _flax_path(name):
-    """A state-dict key -> (collection, path of flax names), or None for a
-    key that flax does not keep (BatchNorm's num_batches_tracked)."""
-    if name.endswith(".num_batches_tracked"):
-        return None
-    top, kind, rest = _flax_top(name.split("."))
-    path = [top]
-    while top is not None and kind not in _LEAVES and rest:
-        flax_child = {t: (f, k) for f, (t, k) in _CHILDREN[kind].items()}.get(rest[0])
-        if flax_child is None:
-            break
-        path.append(flax_child[0])
-        kind, rest = flax_child[1], rest[1:]
-    leaves = {v: k for k, v in _LEAVES.get(kind, {}).items()}
-    if top is None or len(rest) != 1 or rest[0] not in leaves:
-        raise KeyError(f"unknown SRResNet parameter {name!r}")
-    return ("batch_stats" if rest[0] in _BATCH_STATS else "params"), path + [leaves[rest[0]]]
+def from_flax_variables(module, variables):
+    """``module``'s ``state_dict`` (CPU tensors in the leaves' dtypes) from
+    flax ``variables``. Every variable of the tree must belong to the
+    module, and every one of the module must be in the tree."""
+    state, used, own = {}, set(), module.state_dict()
+    for key, like in own.items():
+        where = _flax_path(key, like.dim())
+        if where is None:
+            continue
+        collection, path = where
+        node = variables.get(collection, {})
+        for name in path:
+            node = node.get(name) if isinstance(node, dict) else None
+        if node is None or isinstance(node, dict):
+            raise KeyError(f"{collection}/{'/'.join(path)} is missing for "
+                           f"{type(module).__name__}")
+        t = _tensor(node)
+        if t.dim() == 4:
+            t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+        elif t.dim() == 2:
+            t = t.t()  # (in, out) -> (out, in)
+        state[key] = t.contiguous()
+        used.add((collection, *path))
+        counter = key[:-len("running_mean")] + "num_batches_tracked"
+        if key.endswith(".running_mean") and counter in own:
+            state[counter] = torch.tensor(0)
+    extra = [p for c, tree in variables.items() for p in _leaves(tree, (c,)) if p not in used]
+    if extra:
+        raise KeyError(f"variables not used by {type(module).__name__}: "
+                       f"{['/'.join(p) for p in extra[:5]]}")
+    return state
 
 
 def _sorted(tree):
@@ -129,20 +117,22 @@ def _sorted(tree):
 
 
 def to_flax_variables(state_dict):
-    """The port's SRResNet ``state_dict`` -> flax's ``{"batch_stats": ...,
-    "params": ...}`` tree (the former only when there is BatchNorm),
-    leaves as CPU numpy arrays (bfloat16 ones as tensors), conv kernels HWIO."""
+    """A port module's ``state_dict`` -> flax's ``{"batch_stats": ...,
+    "params": ...}`` tree (the former only when there is BatchNorm), leaves
+    as CPU numpy arrays (bfloat16 ones as tensors)."""
     variables = {"params": {}, "batch_stats": {}}
-    for name, t in state_dict.items():
-        where = _flax_path(name)
+    for key, t in state_dict.items():
+        where = _flax_path(key, t.dim())
         if where is None:
             continue
         collection, path = where
-        if name.endswith("conv.weight") or name == "out.weight":
+        if t.dim() == 4:
             t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        elif t.dim() == 2:
+            t = t.t()
         node = variables[collection]
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
         node[path[-1]] = _numpy_or_tensor(t)
     if not variables["batch_stats"]:
         del variables["batch_stats"]

@@ -11,7 +11,13 @@ gradients. Its ``count`` is the number of updates it applied, which is the
 step its schedule reads and Adam's bias correction counts, as optax's
 ``count``. ``SkipNonFinite`` is ``optax.apply_if_finite``: a step with a
 non-finite gradient is dropped whole (no update, no count) until
-``max_consecutive_errors`` have been dropped in a row.
+``max_consecutive_errors`` have been dropped in a row. ``MultiSteps`` is
+``optax.MultiSteps``: k micro-gradients averaged (Welford's running mean)
+into one update of the optimizer it wraps. ``structure()`` describes what
+shapes an optimizer's state as optax's state tree would be shaped (kind,
+a schedule or a constant rate, clipping, accumulation and the NaN guard),
+so that a checkpoint's state is carried into an optimizer only of the same
+structure.
 """
 
 import math
@@ -20,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["piecewise_constant_decay", "build_schedule", "build_optimizer", "Optimizer",
-           "SkipNonFinite"]
+           "MultiSteps", "SkipNonFinite"]
 
 
 def piecewise_constant_decay(boundaries, values):
@@ -188,6 +194,9 @@ class Optimizer:
         torch._foreach_add_(params, updates)
         self.count += 1
 
+    def structure(self):
+        return (self.kind, callable(self.learning_rate), self.clipnorm is not None)
+
     def state_dict(self):
         return {"count": self.count,
                 "slots": {k: [t.detach().clone() for t in v] for k, v in self.slots.items()}}
@@ -195,6 +204,48 @@ class Optimizer:
     def load_state_dict(self, state):
         self.count = int(state["count"])
         self.slots = {k: [t.clone() for t in v] for k, v in state["slots"].items()}
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k_schedule=every_k)``: each call
+    folds its gradients into a running mean, ``acc + (g - acc) / (n + 1)``;
+    the ``every_k``-th call applies ``inner`` with the mean and clears it.
+    ``count`` is the number of updates applied (optax's ``gradient_step``)."""
+
+    def __init__(self, inner, every_k):
+        self.inner = inner
+        self.every_k = int(every_k)
+        self.mini_step = 0
+        self.acc = None
+
+    @property
+    def count(self):
+        return self.inner.count
+
+    @torch.no_grad()
+    def apply(self, params, grads):
+        if self.acc is None:
+            self.acc = [torch.zeros_like(p) for p in params]
+        delta = torch._foreach_sub(list(grads), self.acc)
+        torch._foreach_div_(delta, self.mini_step + 1)
+        torch._foreach_add_(self.acc, delta)
+        if self.mini_step == self.every_k - 1:
+            self.inner.apply(params, self.acc)
+            torch._foreach_zero_(self.acc)
+        self.mini_step = (self.mini_step + 1) % self.every_k
+
+    def structure(self):
+        return ("multi_steps", self.every_k, self.inner.structure())
+
+    def state_dict(self):
+        return {"mini_step": self.mini_step,
+                "acc": None if self.acc is None else [t.detach().clone() for t in self.acc],
+                "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state):
+        self.mini_step = int(state["mini_step"])
+        self.acc = None if state["acc"] is None else [t.clone() for t in state["acc"]]
+        self.inner.load_state_dict(state["inner"])
 
 
 class SkipNonFinite:
@@ -223,6 +274,9 @@ class SkipNonFinite:
             return True
         return False
 
+    def structure(self):
+        return ("apply_if_finite", self.inner.structure())
+
     def state_dict(self):
         return {"notfinite_count": self.notfinite_count,
                 "total_notfinite": self.total_notfinite, "inner": self.inner.state_dict()}
@@ -236,7 +290,7 @@ class SkipNonFinite:
 def build_optimizer(optimizer="Adam", config=None):
     """An ``Optimizer`` from a Keras-style name and config dict (an
     ``Optimizer`` passes through)."""
-    if isinstance(optimizer, (Optimizer, SkipNonFinite)):
+    if isinstance(optimizer, (Optimizer, MultiSteps, SkipNonFinite)):
         return optimizer
     if not isinstance(optimizer, str):
         raise TypeError(f"optimizer must be a name or an Optimizer, got {type(optimizer)}")

@@ -47,5 +47,5 @@ def load_model(path, device="cuda"):
 
     config, variables = load_payload(path)
     module = build_generator_model(**config, device=device)
-    module.load_state_dict(from_flax_variables(variables))
+    module.load_state_dict(from_flax_variables(module, variables))
     return module

@@ -1,36 +1,62 @@
 """SRModel, the training state machine, as simplesr_tpu.train.sr_model, in
-ResNet mode (a generator trained on pixel losses).
+ResNet mode (a generator trained on pixel losses) and GAN mode (a generator
+and a discriminator trained together).
 
 The same constructor checks and lifecycle: ``train_step`` (one forward,
-loss, backward and optimizer update), ``validation_step``, ``generate``,
-``before_epoch``, ``after_train_batch``, ``after_validation_batch``,
-``after_epoch`` (saves the whole model every epoch, tracks the running best
-of ``early_stop_metric``, saves a checkpoint on a new best, stops early after
-``early_stop_patience`` and restores the best checkpoint) and
-``after_training`` (restores the best checkpoint and saves the ``_best``
-model), with the same batch and epoch history keys, ``test_and_plot``, the
-four TensorBoard writers, ``SRModel.init`` from a ConfigUtil, and the
-preemption-tolerant ``save_resume_point`` and ``resume_training``.
+the losses, the gradients and the optimizer updates), ``validation_step``,
+``generate``, ``before_epoch``, ``after_train_batch``,
+``after_validation_batch``, ``after_epoch`` (saves the whole model every
+epoch, tracks the running best of ``early_stop_metric``, saves a checkpoint
+on a new best, stops early after ``early_stop_patience`` and restores the
+best checkpoint) and ``after_training`` (restores the best checkpoint and
+saves the ``_best`` model, and ``_best_ema`` with EMA), with the same batch
+and epoch history keys, ``test_and_plot``, the four TensorBoard writers,
+``SRModel.init`` from a ConfigUtil, and the preemption-tolerant
+``save_resume_point`` and ``resume_training``.
 ``skip_nonfinite_updates`` (on by default) drops a step whose gradients are
-not finite, as ``optax.apply_if_finite(max_consecutive_errors=100)`` does.
+not finite, per optimizer, as ``optax.apply_if_finite(max_consecutive_errors=
+100)`` does.
+
+The GAN step is the JAX package's joint step: one generator forward; the
+discriminator's gradients from its loss on D(sr) and D(hr), the
+generator's from its losses through D(sr) and D(hr) with the
+discriminator's parameters as they were before this step; then both
+optimizers step. The two branches share one discriminator forward per
+input (in training mode, batch statistics; the running statistics move
+once for the SR call and once for the HR call, as in the JAX package's
+discriminator branch): the discriminator reads a detached copy of sr, its
+loss is differentiated against its parameters, the generator's losses
+against sr and that copy, and the two are carried back through the
+generator together. Validation runs the discriminator in eval mode.
+
+``ema_decay`` keeps an EMA shadow of the generator's parameters,
+initialised at them, moved after every step (with ``grad_accum_steps`` > 1,
+after every applied update only); ``ema_eval`` validates on it.
+``grad_accum_steps`` averages that many micro-gradients into one update of
+each optimizer (``optimizers.MultiSteps``, inside the NaN guard, so a
+non-finite micro-batch is dropped before the accumulator and does not
+count); BatchNorm statistics move on every micro-batch.
 
 Model files, written by ``save_model``, are the format that both packages
 read and write (``train/serialization.py``). The best-state checkpoints that
 ``after_epoch`` writes and ``after_training`` and early stopping restore are
 the port's own: one ``torch.save`` file per step under
-``checkpoint_dir/resnet/``, the newest 5 kept, each holding the parameters
-and buffers, the optimizer and NaN-guard state, the step, the best metric
-and the model's random stream. The resume point is one more such file, the
-newest only, under ``checkpoint_dir/resnet_resume/``, written after every
-epoch and on preemption, beside the JAX package's JSON sidecar
-``checkpoint_dir/resnet_resume_meta.json`` (completed epochs, iterations,
-early-stopping state, epoch histories). Orbax (the JAX package's
+``checkpoint_dir/<model type>/``, the newest 5 kept, each holding the
+generator's parameters and buffers, its optimizer and NaN-guard state, the
+EMA shadow, the discriminator's parameters, buffers and optimizer state, the
+step, the best metric and the model's random stream. The resume point is one
+more such file, the newest only, under ``checkpoint_dir/<model
+type>_resume/``, beside the JAX package's JSON sidecar
+``checkpoint_dir/<model type>_resume_meta.json`` (completed epochs,
+iterations, early-stopping state, epoch histories). ``resnet_checkpoint``
+warm-starts the generator from such a directory of a pixel-trained run
+(``checkpoint_dir/resnet``): parameters, buffers, step and best metric, and
+the optimizer's state when its structure matches. Orbax (the JAX package's
 checkpoints) cannot read them, nor they orbax's.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: the GAN mode, distillation and the warm start from a ResNet
-checkpoint; meshes, FSDP, tensor and pipeline parallelism; the paired trunk;
-EMA and gradient accumulation.
+item: distillation; meshes, FSDP, tensor and pipeline parallelism; the paired
+trunk.
 """
 
 import json
@@ -46,16 +72,17 @@ from simplesr_tpu_torch.core.device import resolve_device
 from simplesr_tpu_torch.ops import metrics as image_metrics_lib
 from simplesr_tpu_torch.train import serialization
 from simplesr_tpu_torch.train.early_stopping import EarlyStopping
+from simplesr_tpu_torch.train.convert import to_flax_variables
 from simplesr_tpu_torch.train.metrics import MetricBundle
-from simplesr_tpu_torch.train.optimizers import SkipNonFinite, build_optimizer
+from simplesr_tpu_torch.train.optimizers import MultiSteps, SkipNonFinite, build_optimizer
 
 _KEEP_CHECKPOINTS = 5
 _CHECKPOINT = re.compile(r"step_(\d+)\.pt")
 
-GAN_ITEM = "ROADMAP.md, Queue 1, the GAN family"
+DISTILL_ITEM = "ROADMAP.md, Queue 1, distillation"
 PARALLEL_ITEM = "ROADMAP.md, Queue 1, the parallel layer"
 PAIRED_ITEM = "ROADMAP.md, Queue 1, paired_train"
-EMA_ACCUM_ITEM = "ROADMAP.md, Queue 1, EMA and gradient accumulation"
+_VALID_LABEL_SEED = 4711  # the JAX package's validation key, folded with the iteration
 
 
 def not_ported(what, item):
@@ -95,12 +122,13 @@ class SRModel:
                  pipeline_microbatches=None,
                  paired_ways=None,
                  device="cuda"):
-        """``seed`` roots the model's random stream (the GAN mode's noise;
-        checkpointed, unused in ResNet mode); ``async_checkpointing`` (the
-        port's checkpoints are written at once) and ``pipeline_microbatches``
-        are accepted as the JAX package takes them and change nothing. Batch
+        """``seed`` roots the model's random stream (the discriminator's
+        smoothed labels; checkpointed); ``async_checkpointing`` (the port's
+        checkpoints are written at once) and ``pipeline_microbatches`` are
+        accepted as the JAX package takes them and change nothing. Batch
         metrics go to the batch writers every ``tb_batch_interval`` steps.
-        The generator's module moves to ``device``."""
+        The generator's and the discriminator's modules move to
+        ``device``."""
         if model_type.lower() not in ("gan", "resnet"):
             raise ValueError("model type not recognized")
         if generator is None:
@@ -122,16 +150,11 @@ class SRModel:
         if fsdp and mesh is None:
             raise ValueError("fsdp=True requires a device mesh (mesh=...)")
         unported = [
-            (model_type.lower() == "gan", "model_type='gan'", GAN_ITEM),
-            (distill is not None, "distillation", GAN_ITEM),
-            (resnet_checkpoint is not None, "the warm start from a resnet_checkpoint", GAN_ITEM),
+            (distill is not None, "distillation", DISTILL_ITEM),
             (mesh is not None, "training on a mesh", PARALLEL_ITEM),
             (tensor_parallel, "tensor_parallel", PARALLEL_ITEM),
             (pipeline_parallel, "pipeline_parallel", PARALLEL_ITEM),
             (paired_ways is not None and int(paired_ways) > 1, "paired_ways > 1", PAIRED_ITEM),
-            (ema_decay is not None, "ema_decay", EMA_ACCUM_ITEM),
-            (grad_accum_steps is not None and int(grad_accum_steps) > 1,
-             "grad_accum_steps > 1", EMA_ACCUM_ITEM),
         ]
         for unsupported, what, item in unported:
             if unsupported:
@@ -148,6 +171,7 @@ class SRModel:
         self._epoch_validation_summary_writer = epoch_validation_summary_writer
         self._batch_validation_summary_writer = batch_validation_summary_writer
         self._generator_optimizer_config = generator_optimizer_config
+        self._discriminator_optimizer_config = discriminator_optimizer_config
         self._rng = torch.Generator().manual_seed(int(seed))
         self._model_dir = "./models"
         self._checkpoint_dir = "./checkpoints"
@@ -158,11 +182,28 @@ class SRModel:
                 self._checkpoint_dir = config.checkpoint_dir
 
         self._device = resolve_device(device)
+        self._grad_accum = 1 if grad_accum_steps is None else int(grad_accum_steps)
+
+        def optimizer(name, config):
+            opt = build_optimizer(name, config)
+            if self._grad_accum > 1:
+                opt = MultiSteps(opt, self._grad_accum)
+            # outside the accumulator: a non-finite micro-batch never reaches it
+            return SkipNonFinite(opt, max_consecutive_errors=100) if skip_nonfinite_updates \
+                else opt
+
         self._generator = generator.to(self._device)
-        self._params = list(generator.model().parameters())
-        self._optimizer = build_optimizer(generator_optimizer, generator_optimizer_config)
-        if skip_nonfinite_updates:
-            self._optimizer = SkipNonFinite(self._optimizer, max_consecutive_errors=100)
+        self._param_names, self._params = map(list, zip(*generator.model().named_parameters()))
+        self._optimizer = optimizer(generator_optimizer, generator_optimizer_config)
+        self._discriminator = None
+        self._d_optimizer = None
+        if self._model_type == "gan":
+            self._discriminator = discriminator.to(self._device)
+            self._d_params = list(discriminator.model().parameters())
+            self._d_optimizer = optimizer(discriminator_optimizer, discriminator_optimizer_config)
+        self._ema_decay = None if ema_decay is None else float(ema_decay)
+        self._ema_eval = bool(ema_eval)
+        self._ema = self._fresh_ema()
         self._step = 0
         self._best_metric = -1.0
         self._ckpt_dir = os.path.abspath(os.path.join(self._checkpoint_dir, self._model_type))
@@ -191,6 +232,14 @@ class SRModel:
         self._early_stop_patience = early_stop_patience
         self._early_stopping_util = EarlyStopping(metric_key=early_stop_metric,
                                                   patience=early_stop_patience)
+        if resnet_checkpoint is not None:
+            self._restore_resnet_checkpoint(resnet_checkpoint)
+
+    def _fresh_ema(self):
+        """The EMA shadow at the generator's parameters (None without EMA)."""
+        if self._ema_decay is None:
+            return None
+        return [p.detach().clone() for p in self._params]
 
     # ========================================================== public steps
 
@@ -201,41 +250,115 @@ class SRModel:
         return {k: fn(hr, sr).mean() for k, fn in self._image_metrics.items()}
 
     def train_step(self, lr_batch, hr_batch):
-        """One optimisation step: forward, loss, backward and update."""
+        """One optimisation step: forward, losses, gradients and updates."""
         lr, hr = self._batch(lr_batch), self._batch(hr_batch)
         module = self._generator.model()
         module.train()
         sr = module(lr).float()
-        loss, g_metrics = self._generator.calculate_loss(sr, hr, None, None)
-        grads = torch.autograd.grad(loss, self._params)
-        self._optimizer.apply(self._params, grads)
+        d_metrics = None
+        if self._model_type == "gan":
+            g_grads, d_grads, g_metrics, d_metrics = self._gan_gradients(sr, hr)
+        else:
+            loss, g_metrics = self._generator.calculate_loss(sr, hr, None, None)
+            g_grads = torch.autograd.grad(loss, self._params)
+        updates = self._optimizer.count
+        self._optimizer.apply(self._params, g_grads)
+        if d_metrics is not None:
+            self._d_optimizer.apply(self._d_params, d_grads)
+        # as the JAX package: without accumulation the shadow moves every
+        # step; with it, only when an update was applied
+        if self._ema is not None and (self._grad_accum == 1
+                                      or self._optimizer.count != updates):
+            self._advance_ema()
         self._step += 1
         sr = sr.detach()
         self._generator.accumulate_metrics({k: v.detach() for k, v in g_metrics.items()},
                                            train=True)
+        if d_metrics is not None:
+            self._discriminator.accumulate_metrics(
+                {k: v.detach() for k, v in d_metrics.items()}, train=True)
         for k, v in self._image_metric_values(hr, sr).items():
             self._train_epoch_metrics.ensure(k)(v)
             self._batch_metrics.ensure(k)(v)
 
-    def validation_step(self, lr_batch, hr_batch):
-        """One validation pass, in eval mode."""
-        lr, hr = self._batch(lr_batch), self._batch(hr_batch)
+    def _gan_losses(self, sr, hr):
+        """The joint step's losses on one discriminator forward per input
+        (in training mode), the SR one on a detached copy ``sr_in`` of sr:
+        (sr_in, d_loss, g_loss, g_metrics, d_metrics)."""
+        disc = self._discriminator.model()
+        disc.train()
+        sr_in = sr.detach().requires_grad_(True)
+        sr_critic, hr_critic = disc(sr_in), disc(hr)
+        d_loss, d_metrics = self._discriminator.calculate_loss(sr_critic, hr_critic, self._rng)
+        g_loss, g_metrics = self._generator.calculate_loss(sr, hr, sr_critic, hr_critic)
+        return sr_in, d_loss, g_loss, g_metrics, d_metrics
+
+    def _gan_gradients(self, sr, hr):
+        """The joint step's gradients: the discriminator's of its loss, the
+        generator's of its losses through the discriminator as it is now:
+        their gradient at sr directly and through sr_in, carried back through
+        the generator together."""
+        sr_in, d_loss, g_loss, g_metrics, d_metrics = self._gan_losses(sr, hr)
+        d_grads = torch.autograd.grad(d_loss, self._d_params, retain_graph=True)
+        direct, through_d = torch.autograd.grad(g_loss, [sr, sr_in], allow_unused=True)
+        sr_grad = direct if through_d is None else \
+            through_d if direct is None else direct + through_d
+        g_grads = torch.autograd.grad(sr, self._params, sr_grad, allow_unused=True)
+        g_grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self._params, g_grads)]
+        return g_grads, d_grads, g_metrics, d_metrics
+
+    @torch.no_grad()
+    def _advance_ema(self):
+        """shadow = decay * shadow + (1 - decay) * parameters, in float32."""
+        torch._foreach_mul_(self._ema, self._ema_decay)
+        torch._foreach_add_(self._ema, torch._foreach_mul(self._params, 1.0 - self._ema_decay))
+
+    def _ema_parameters(self):
+        if self._ema is None:
+            raise ValueError("EMA weights requested but the model was built without ema_decay")
+        return dict(zip(self._param_names, self._ema))
+
+    def _eval_forward(self, x, ema):
+        """The generator in eval mode on ``x``, with its parameters or the
+        EMA shadow."""
         module = self._generator.model()
         module.eval()
+        if not ema:
+            return module(x)
+        return torch.func.functional_call(module, self._ema_parameters(), (x,))
+
+    def validation_step(self, lr_batch, hr_batch):
+        """One validation pass, in eval mode (on the EMA shadow with
+        ``ema_eval``)."""
+        lr, hr = self._batch(lr_batch), self._batch(hr_batch)
+        d_metrics = None
         with torch.no_grad():
-            sr = module(lr).float()
-            _, g_metrics = self._generator.calculate_loss(sr, hr, None, None)
+            sr = self._eval_forward(lr, self._ema_eval).float()
+            sr_critic = hr_critic = None
+            if self._model_type == "gan":
+                disc = self._discriminator.model()
+                disc.eval()
+                sr_critic, hr_critic = disc(sr), disc(hr)
+                labels = torch.Generator().manual_seed(
+                    _VALID_LABEL_SEED * 1_000_003 + self._iterations)
+                _, d_metrics = self._discriminator.calculate_loss(sr_critic, hr_critic, labels)
+            _, g_metrics = self._generator.calculate_loss(sr, hr, sr_critic, hr_critic)
             img = self._image_metric_values(hr, sr)
         self._generator.accumulate_metrics(g_metrics, train=False)
+        if d_metrics is not None:
+            self._discriminator.accumulate_metrics(d_metrics, train=False)
         for k, v in img.items():
             self._valid_epoch_metrics.ensure(k)(v)
             self._batch_metrics.ensure(k)(v)
 
     def generate(self, lr_batch, ema=False):
-        """SR with the current generator parameters, in eval mode."""
-        if ema:
-            raise not_ported("EMA weights", EMA_ACCUM_ITEM)
-        return self._generator.generate(lr_batch)
+        """SR with the current generator parameters (or, ``ema=True``, the
+        EMA shadow), in eval mode."""
+        if not ema:
+            return self._generator.generate(lr_batch)
+        x = torch.as_tensor(lr_batch, dtype=torch.float32).to(self._device)
+        with torch.inference_mode():
+            return self._eval_forward(x, ema=True)
 
     def test_and_plot(self, lr_batch, save_dir, step, hr_batch=None, file_path=None):
         """SR a batch and save an annotated grid of it, its bicubic
@@ -313,23 +436,29 @@ class SRModel:
         self._save_resume_point(self._epochs)
 
     def after_training(self):
-        """Restore the best checkpoint and save the ``_best`` model."""
+        """Restore the best checkpoint and save the ``_best`` model, and the
+        ``_best_ema`` one with EMA."""
         self._restore_latest_checkpoint()
         self.save_model(self._model_dir, postfix="best")
+        if self._ema is not None:
+            self.save_model(self._model_dir, postfix="best_ema", ema=True)
         self._reset_epoch_metrics()
 
     def save_model(self, save_path, postfix=None, ema=False):
-        """Save the generator as a model file,
+        """Save the generator (``ema=True``: with the EMA shadow for its
+        parameters) as a model file,
         ``<save_path>/<model type>_gen_<postfix>.msgpack`` (the epoch count
         by default). Returns the path."""
-        if ema:
-            raise not_ported("EMA weights", EMA_ACCUM_ITEM)
         if postfix is None:
             postfix = self._epochs
+        module = self._generator.model()
+        state = module.state_dict()
+        if ema:
+            state.update(self._ema_parameters())
         path = os.path.join(save_path,
                             f"{self._model_type}_gen_{postfix}{serialization.MODEL_EXT}")
-        serialization.save_model(self._generator.module_config(), self._generator.variables,
-                                 path)
+        serialization.save_model(self._generator.module_config(),
+                                 to_flax_variables(state), path)
         return path
 
     # ================================================ preemption and resume
@@ -425,11 +554,15 @@ class SRModel:
         state = {
             "step": self._step,
             "best_metric": self._best_metric,
-            "params": {k: v.detach().cpu().clone()
-                       for k, v in self._generator.model().state_dict().items()},
+            "params": _to_cpu(self._generator.model().state_dict()),
             "optimizer": _to_cpu(self._optimizer.state_dict()),
+            "optimizer_structure": self._optimizer.structure(),
+            "ema": _to_cpu(self._ema),
             "rng": self._rng.get_state(),
         }
+        if self._model_type == "gan":
+            state["d_params"] = _to_cpu(self._discriminator.model().state_dict())
+            state["d_optimizer"] = _to_cpu(self._d_optimizer.state_dict())
         path = os.path.join(directory, f"step_{self._step}.pt")
         tmp = f"{path}.tmp{os.getpid()}"
         torch.save(state, tmp)
@@ -455,6 +588,43 @@ class SRModel:
         self._step = int(state["step"])
         self._best_metric = float(state["best_metric"])
         self._rng.set_state(state["rng"].cpu())
+        if self._ema is not None:
+            self._ema = [t.clone() for t in state["ema"]]
+        if self._model_type == "gan":
+            self._discriminator.model().load_state_dict(state["d_params"])
+            self._d_optimizer.load_state_dict(state["d_optimizer"])
+
+    def _restore_resnet_checkpoint(self, checkpoint_dir):
+        """Warm-start the generator from the newest checkpoint of a
+        pixel-trained run's directory (``checkpoint_dir/resnet``):
+        parameters, buffers, step and best metric; the optimizer's state
+        only when this run's optimizer has its structure and both runs keep
+        an EMA shadow or neither does (else a warning, and the optimizer
+        starts fresh, as in the JAX package). The EMA shadow starts at the
+        restored parameters."""
+        directory = os.path.abspath(checkpoint_dir)
+        entries = os.listdir(directory) if os.path.isdir(directory) else []
+        if any(e.isdigit() or e.startswith("_CHECKPOINT_METADATA") for e in entries):
+            raise ValueError(
+                f"{checkpoint_dir} holds orbax checkpoints (the JAX package's format); the port "
+                "reads only its own torch.save checkpoints, step_<n>.pt")
+        step, path = self._latest(directory)
+        if step is None:
+            raise ValueError(f"no checkpoint found in {checkpoint_dir}")
+        state = torch.load(path, map_location=self._device, weights_only=True)
+        self._generator.model().load_state_dict(state["params"])
+        # the JAX package restores the whole state against one template, so
+        # its optimizer state also stays behind when EMA is on in one run only
+        if state.get("optimizer_structure") == self._optimizer.structure() and \
+                (state.get("ema") is None) == (self._ema is None):
+            self._optimizer.load_state_dict(state["optimizer"])
+        else:
+            logging.getLogger("simple_sr").warning(
+                "resnet checkpoint optimizer state does not match this run's optimizer; "
+                "warm-starting params only")
+        self._step = int(state["step"])
+        self._best_metric = float(state["best_metric"])
+        self._ema = self._fresh_ema()
 
     def _restore_latest_checkpoint(self):
         step, path = self.latest_checkpoint()
@@ -489,6 +659,19 @@ class SRModel:
     def generator_wrapper(self):
         return self._generator
 
+    def discriminator_wrapper(self):
+        return self._discriminator
+
+    @property
+    def discriminator_optimizer(self):
+        return self._d_optimizer
+
+    @property
+    def ema_parameters(self):
+        """The EMA shadow, in the generator's parameter order (None without
+        EMA)."""
+        return self._ema
+
     @property
     def optimizer(self):
         return self._optimizer
@@ -508,12 +691,12 @@ class SRModel:
     def _combined_batch_metrics(self, lazy=True):
         """The batch's metrics: as given (tensors, no device sync), or as
         floats (``lazy=False``)."""
-        if lazy:
-            out = dict(self._batch_metrics.last_values())
-            out.update(self._generator.batch_metrics().last_values())
-            return out
-        out = dict(self._batch_metrics.results())
-        out.update(self._generator.batch_metrics().results())
+        parts = [self._batch_metrics, self._generator.batch_metrics()]
+        if self._discriminator is not None:
+            parts.append(self._discriminator.batch_metrics())
+        out = {}
+        for part in parts:
+            out.update(part.last_values() if lazy else part.results())
         return out
 
     def _log_batch_metrics_to_tb(self, train=True):
@@ -536,6 +719,8 @@ class SRModel:
         own = self._train_epoch_metrics if train else self._valid_epoch_metrics
         out = dict(own.results())
         out.update(self._generator.epoch_metrics(train).results())
+        if self._discriminator is not None:
+            out.update(self._discriminator.epoch_metrics(train).results())
         return out
 
     def _check_early_stopping(self):
@@ -559,10 +744,14 @@ class SRModel:
         self._train_epoch_metrics.reset()
         self._valid_epoch_metrics.reset()
         self._generator.reset_epoch_metrics()
+        if self._discriminator is not None:
+            self._discriminator.reset_epoch_metrics()
 
     def _reset_batch_metrics(self):
         self._batch_metrics.reset()
         self._generator.reset_batch_metrics()
+        if self._discriminator is not None:
+            self._discriminator.reset_batch_metrics()
 
     def formatted_epoch_metrics(self):
         return self._format_metrics(True, "Training") + self._format_metrics(False, "Validation")
@@ -571,17 +760,20 @@ class SRModel:
         own = self._train_epoch_metrics if train else self._valid_epoch_metrics
         img = "".join(f"{k}: {v:.5f}\n" for k, v in own.results().items())
         gen = self._generator.formatted_epoch_metrics(train=train)
-        return f"{header}\n{img}Generator\n{gen}"
+        out = f"{header}\n{img}Generator\n{gen}"
+        if self._discriminator is not None:
+            out += "Discriminator\n" + self._discriminator.formatted_epoch_metrics(train=train)
+        return out
 
     def __str__(self):
         return (f"# SR Model\n"
                 f"model type: {self._model_type}\n"
                 f"generator optimizer config: {self._generator_optimizer_config}\n"
-                f"discriminator optimizer config: None\n"
+                f"discriminator optimizer config: {self._discriminator_optimizer_config}\n"
                 f"image metrics: {list(self._image_metrics)}\n"
                 f"early stop metric: {self._early_stop_metric}\n"
                 f"early stop patience: {self._early_stop_patience}\n\n"
-                f"{self._generator}\nNone")
+                f"{self._generator}\n{self._discriminator}")
 
     # ============================================================== factory
 
@@ -594,15 +786,13 @@ class SRModel:
         port has not ported raises ``NotImplementedError`` with its
         ROADMAP.md item: more than one device under ``data_parallel``,
         ``fsdp``, ``tensor_parallel``, ``pipeline_parallel``,
-        ``paired_train`` > 1, ``distill``, ``ema_decay``, ``ema_eval`` and
-        ``grad_accum_steps`` > 1."""
+        ``paired_train`` > 1 and ``distill``."""
         device = resolve_device(device)
         tp = int(getattr(config, "tensor_parallel", 0) or 0)
         pp = int(getattr(config, "pipeline_parallel", 0) or 0)
         if tp > 1 and pp > 1:
             raise ValueError("tensor_parallel and pipeline_parallel are mutually exclusive")
         paired = getattr(config, "paired_train", None)
-        grad_accum = getattr(config, "grad_accum_steps", None)
         multi_device = device.type == "cuda" and torch.cuda.device_count() > 1
         unported = [
             (getattr(config, "data_parallel", False) and multi_device,
@@ -611,11 +801,7 @@ class SRModel:
             (tp > 1, "tensor_parallel", PARALLEL_ITEM),
             (pp > 1, "pipeline_parallel", PARALLEL_ITEM),
             (paired is not None and int(paired) > 1, "paired_train > 1", PAIRED_ITEM),
-            (getattr(config, "distill", None) is not None, "distill", GAN_ITEM),
-            (getattr(config, "ema_decay", None) is not None, "ema_decay", EMA_ACCUM_ITEM),
-            (getattr(config, "ema_eval", False), "ema_eval", EMA_ACCUM_ITEM),
-            (grad_accum is not None and int(grad_accum) > 1, "grad_accum_steps > 1",
-             EMA_ACCUM_ITEM),
+            (getattr(config, "distill", None) is not None, "distill", DISTILL_ITEM),
         ]
         for unsupported, what, item in unported:
             if unsupported:
@@ -629,6 +815,9 @@ class SRModel:
             image_metrics=image_metrics,
             early_stop_metric=config.early_stop_metric,
             early_stop_patience=config.early_stop_patience,
+            ema_decay=getattr(config, "ema_decay", None),
+            ema_eval=getattr(config, "ema_eval", False),
+            grad_accum_steps=getattr(config, "grad_accum_steps", None),
             epoch_train_summary_writer=config.epoch_train_summary_writer,
             batch_train_summary_writer=config.batch_train_summary_writer,
             epoch_validation_summary_writer=config.epoch_validation_summary_writer,
@@ -637,7 +826,8 @@ class SRModel:
 
 
 def _to_cpu(tree):
-    """A copy of a nest of dicts and lists with every tensor on the CPU."""
+    """A copy of a nest of dicts and lists (None passes) with every tensor
+    on the CPU."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().clone()
     if isinstance(tree, dict):

@@ -15,7 +15,7 @@ from simplesr_tpu_torch.models import build_generator_model
 from simplesr_tpu_torch.models.srresnet import output_conv
 from simplesr_tpu_torch.ops.kernels import (TrunkFunction, pack_trunk_weights, residual_trunk,
                                             residual_trunk_reference)
-from simplesr_tpu_torch.train import from_flax_variables
+from simplesr_tpu_torch.train import from_flax_variables, to_flax_variables
 
 BLOCKS = 2
 
@@ -196,8 +196,11 @@ def test_trunk_function_gradients_match_jax_grad():
 
     jax_params, jax_x = jax.grad(loss_fn, argnums=(0, 1))(params, jnp.asarray(x))
 
-    state = from_flax_variables({"params": {f"ResBlock_{i}": jax.device_get(p)
-                                            for i, p in enumerate(params)}})
+    trunk = build_generator_model(2, num_blocks=BLOCKS, num_filters=64, batch_norm=False,
+                                  dtype="bfloat16", device="cpu")
+    variables = to_flax_variables(trunk.state_dict())
+    variables["params"].update({f"ResBlock_{i}": jax.device_get(p) for i, p in enumerate(params)})
+    state = from_flax_variables(trunk, variables)
     leaves = []
     for i in range(BLOCKS):
         for name in ("conv1.conv.weight", "conv1.conv.bias", "act.alpha", "conv2.conv.weight",

@@ -2,8 +2,8 @@
 (paths pointed at the gallery) gives the same attributes, except the
 timestamped run name and the TensorBoard writers, and the same save-dir
 tree; resume directories resolve alike; ``from_yaml`` builds the run on the
-CPU where the port can train the example and raises NotImplementedError,
-naming its ROADMAP.md item, where it cannot."""
+CPU where the port can train the example (the GAN ones in GAN mode) and
+raises NotImplementedError, naming its ROADMAP.md item, where it cannot."""
 
 import os
 from pathlib import Path
@@ -22,10 +22,9 @@ GALLERY = str(ROOT / "data/corpus/gallery")
 TRAINING = sorted((ROOT / "examples/training").glob("*.yaml"))
 # examples whose run the port builds; the others name what is not ported
 PORTED = {"minimal_example.yaml", "srresnet128_x4.yaml", "srresnet_denoise_x2.yaml",
-          "srresnet_x4.yaml"}
-UNPORTED = {"esrgan_x4.yaml": "GAN family", "srgan_x4.yaml": "GAN family",
-            "rrdb_deep_scaled_x4.yaml": "ROADMAP.md",
-            "srresnet_distill_x4.yaml": "GAN family",
+          "srresnet_x4.yaml", "esrgan_x4.yaml", "srgan_x4.yaml"}
+UNPORTED = {"rrdb_deep_scaled_x4.yaml": "ROADMAP.md",
+            "srresnet_distill_x4.yaml": "distillation",
             "srresnet_x4_paired_production.yaml": "paired_train"}
 
 
@@ -76,7 +75,10 @@ def test_from_yaml_builds_or_names_the_item(path, tmp_path):
         conf, pipeline, model = ConfigUtil.from_yaml(spec, device="cpu")
         assert isinstance(pipeline, DataPipeline) and isinstance(model, SRModel)
         assert pipeline.device.type == model.device.type == "cpu"
-        assert model.model_type == "resnet" and conf.operation == "training"
+        gan = "discriminator" in spec["model"]
+        assert model.model_type == ("gan" if gan else "resnet") and conf.operation == "training"
+        assert (model.discriminator_wrapper() is not None) == gan
+        assert (model.ema_parameters is not None) == bool(general.get("ema_decay"))
         assert pipeline.train_imgs and pipeline.crop_size == tuple(general["crop_size"])
     else:
         with pytest.raises(NotImplementedError, match=UNPORTED[path.name]):

@@ -301,3 +301,95 @@ def test_pipeline_on_cuda_matches_cpu(cuda, resident):
         assert gh.device.type == "cuda" and gh.shape == (16, 96, 96, 3)
         assert torch.equal(gh.cpu(), ch)
         assert (gl.cpu() - cl).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("global_tf32", [False, True])
+def test_vgg_runs_in_float32_whatever_the_global_flag(cuda, global_tf32):
+    """The VGG taps and their gradient run with TF32 off whatever cuDNN's
+    global flag says (the JAX package's precision="highest"), and leave the
+    flag as they found it: both within 1e-5 of float64 on the CPU (relative
+    Frobenius; TF32's 10-bit mantissa would part by about 1e-3)."""
+    from simplesr_tpu_torch.models.vgg import VGGFeatures, init_vgg_params
+    from simplesr_tpu_torch.train.convert import from_flax_variables
+
+    module = VGGFeatures("vgg19", ("block2_conv2", "block3_conv4"))
+    module.load_state_dict(from_flax_variables(module, init_vgg_params()))
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(0)) * 255.0
+
+    def taps_and_grad(m, x):
+        x = x.clone().requires_grad_(True)
+        taps = m(x)
+        grad, = torch.autograd.grad(sum(t.square().mean() for t in taps.values()), x)
+        return taps["block3_conv4"].detach(), grad
+
+    want = taps_and_grad(module.double(), x.double())
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = global_tf32
+        got = taps_and_grad(module.float().to(cuda), x.to(cuda))
+        assert torch.backends.cudnn.allow_tf32 == global_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for g, w in zip(got, want):
+        assert ((g.cpu().double() - w).norm() / w.norm()).item() < 1e-5
+
+
+def test_rrdb_and_critic_on_cuda_match_cpu(cuda):
+    """A float32 RRDB x4 and a critic at 32 x 48 on the card against the
+    CPU: 1e-4 (float32 convolutions summed in other orders; the generator's
+    output conv with TF32, as the model sets it); no kernel launches."""
+    from simplesr_tpu_torch.models import Discriminator, build_generator_model
+
+    torch.manual_seed(0)
+    rrdb = build_generator_model(4, architecture="rrdb", num_blocks=2, num_filters=16,
+                                 dtype="float32", device="cpu")
+    critic = Discriminator(num_filters=8, dtype=torch.float32, input_dims=(32, 48)).eval()
+    x = torch.rand((2, 8, 12, 3))
+    with torch.inference_mode():
+        want = rrdb(x), critic(x.repeat_interleave(4, 1).repeat_interleave(4, 2))
+    before = residual_trunk.launches
+    rrdb, critic = rrdb.to(cuda), critic.to(cuda)
+    with torch.inference_mode():
+        got = rrdb(x.to(cuda)), critic(x.to(cuda).repeat_interleave(4, 1).repeat_interleave(4, 2))
+    torch.cuda.synchronize()
+    assert residual_trunk.launches == before
+    assert (got[0].cpu() - want[0]).abs().max().item() < 1e-2  # TF32 output conv on the card
+    assert (got[1].cpu() - want[1]).abs().max().item() < 1e-4
+
+
+def test_gan_step_on_cuda_matches_cpu(cuda, monkeypatch):
+    """One SRGAN step (float32 SRResNet, MSE + adversarial, the standard
+    critic) on the card against the CPU from the same weights and batch,
+    TF32 off everywhere (the critic's input gradient amplifies rounding, so
+    TF32's would show): parameters of both networks to 1e-4 after one SGD
+    step."""
+    import copy
+
+    from simplesr_tpu_torch.losses import AdversarialLoss, MeanSquaredError
+    from simplesr_tpu_torch.models import srresnet
+    from simplesr_tpu_torch.train import Discriminator, Generator, SRModel
+
+    monkeypatch.setattr(srresnet, "OUTPUT_CONV_TF32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+    models = {}
+    for device in ("cpu", cuda):
+        torch.manual_seed(0)
+        gen = Generator.srresnet(4, loss_function=[MeanSquaredError(), AdversarialLoss(
+            weighted=True, loss_weight=1e-3)], num_blocks=2, num_filters=16, batch_norm=False,
+            dtype="float32", device="cpu")
+        disc = Discriminator.initialize_standard(num_filters=8, input_dims=(32, 32),
+                                                 dtype="float32", device="cpu")
+        models[str(device)] = SRModel("gan", gen.to(device), "SGD", {"learning_rate": 0.05},
+                                      disc.to(device), "SGD", {"learning_rate": 0.05},
+                                      device=device)
+    rng = np.random.default_rng(3)
+    lr = rng.uniform(0, 1, (2, 8, 8, 3)).astype(np.float32)
+    hr = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    for model in models.values():
+        model.train_step(lr, hr)
+    cpu, card = models["cpu"], models[str(cuda)]
+    for part in (lambda m: m.generator(), lambda m: m.discriminator_wrapper().model()):
+        want = copy.deepcopy(part(cpu).state_dict())
+        for k, v in part(card).state_dict().items():
+            assert (v.cpu().float() - want[k].float()).abs().max().item() < 1e-4, k

@@ -12,6 +12,7 @@ from flax import serialization as flax_ser
 from simplesr_tpu.train.generator import Generator as JaxGenerator
 from simplesr_tpu.train.serialization import load_model as jax_load_model
 from simplesr_tpu.train.serialization import save_model as jax_save_model
+from simplesr_tpu_torch.models import build_generator_model
 from simplesr_tpu_torch.train import (from_flax_variables, load_model, save_model,
                                       to_flax_variables)
 from simplesr_tpu_torch.train._msgpack import packb, unpackb
@@ -49,7 +50,8 @@ def test_bytes_equal_flax_for_the_same_variables(tmp_path):
     variables = _sorted_device_get(gen.variables)
     jax_path, port_path = tmp_path / "jax.msgpack", tmp_path / "port.msgpack"
     jax_save_model(gen.module_config(), variables, str(jax_path))
-    state = from_flax_variables(variables)
+    module = build_generator_model(**gen.module_config(), device="cpu")
+    state = from_flax_variables(module, variables)
     save_model(gen.module_config(), to_flax_variables(state), str(port_path))
     assert port_path.read_bytes() == jax_path.read_bytes()
 

@@ -13,7 +13,7 @@ from flax import serialization as flax_ser
 
 from simplesr_tpu.train.serialization import load_payload as jax_load_payload
 from simplesr_tpu_torch.models import build_generator_model
-from simplesr_tpu_torch.train import from_flax_variables, load_payload
+from simplesr_tpu_torch.train import from_flax_variables, load_payload, to_flax_variables
 from simplesr_tpu_torch.train._msgpack import unpackb
 
 FLAGSHIP = "results/quality_fastrecipe/models/resnet_gen_srresnet_x4_best.msgpack"
@@ -51,8 +51,8 @@ def test_payload_bit_equal_to_reference(path):
 @pytest.mark.parametrize("path", [FLAGSHIP, BN_MODEL])
 def test_converted_state_dict_fills_the_module(path):
     config, variables = load_payload(path)
-    state = from_flax_variables(variables)
     module = build_generator_model(**config, device="cpu")
+    state = from_flax_variables(module, variables)
     assert set(state) == set(module.state_dict())
     module.load_state_dict(state)  # strict
     kernel = variables["params"]["ResBlock_3"]["ConvLayer_1"]["Conv_0"]["kernel"]
@@ -63,15 +63,22 @@ def test_converted_state_dict_fills_the_module(path):
 
 def test_converted_bfloat16_leaves_from_jax_arrays():
     arr = np.asarray(jnp.asarray(np.linspace(-3, 3, 24).reshape(2, 3, 1, 4), jnp.bfloat16))
-    state = from_flax_variables({"params": {"Conv_0": {"kernel": arr, "bias": arr[0, 0, 0]}}})
+    module = build_generator_model(4, num_blocks=1, num_filters=4, device="cpu")
+    variables = to_flax_variables(module.state_dict())
+    variables["params"]["Conv_0"] = {"kernel": arr, "bias": arr[0, 0, 0]}
+    state = from_flax_variables(module, variables)
     assert state["out.weight"].dtype == torch.bfloat16
     np.testing.assert_array_equal(state["out.weight"].float().numpy(),
                                   np.transpose(arr.astype(np.float32), (3, 2, 0, 1)))
 
 
 def test_unknown_module_is_refused():
+    module = build_generator_model(4, num_blocks=1, device="cpu")
+    variables = to_flax_variables(module.state_dict())
+    from_flax_variables(module, variables)
+    variables["params"]["RRDBBlock_0"] = {}
     with pytest.raises(KeyError):
-        from_flax_variables({"params": {"RRDBBlock_0": {}}})
+        from_flax_variables(module, variables)
 
 
 @pytest.mark.parametrize("obj", [

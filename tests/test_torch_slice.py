@@ -257,9 +257,16 @@ def _imports(path):
             yield node.module
 
 
+# the GAN family's modules, each held to the rule like every other file
+GAN_MODULES = ["models/rrdb.py", "models/discriminator.py", "models/vgg.py",
+               "losses/adversarial.py", "losses/vgg_loss.py", "losses/learned_perceptual.py",
+               "train/discriminator.py"]
+
+
 def test_port_imports_only_torch_numpy_and_stdlib():
     files = sorted((ROOT / "simplesr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert {ROOT / "simplesr_tpu_torch" / m for m in GAN_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
@@ -269,7 +276,8 @@ def test_port_imports_only_torch_numpy_and_stdlib():
 
 @pytest.mark.parametrize("entry", ["upscale_files", "engine", "load_model", "build",
                                    "data_pipeline", "config_from_yaml", "train_tool",
-                                   "run_training"])
+                                   "run_training", "build_rrdb", "discriminator",
+                                   "esrgan_generator", "gan_yaml"])
 def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -277,7 +285,7 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     from simplesr_tpu_torch.data import DataPipeline
     from simplesr_tpu_torch.models import build_generator_model
     from simplesr_tpu_torch.tools.train import main as train_main
-    from simplesr_tpu_torch.train import run_training
+    from simplesr_tpu_torch.train import Discriminator, Generator, run_training
     from simplesr_tpu_torch.train.serialization import load_model
 
     spec = _yaml.load(str(ROOT / "examples/training/minimal_example.yaml"))
@@ -286,6 +294,10 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
                            results_save_path=str(tmp_path / "results"))
     yaml_path = tmp_path / "run.yaml"
     yaml_path.write_text(_yaml.dump(spec))
+    gan = _yaml.load(str(ROOT / "examples/training/esrgan_x4.yaml"))
+    gan["general"].update(spec["general"])
+    gan_path = tmp_path / "gan.yaml"
+    gan_path.write_text(_yaml.dump(gan))
     calls = {"upscale_files": lambda: upscale_files(small_model, [], tmp_path, 2),
              "engine": lambda: SREngine(small_model, 2),
              "load_model": lambda: load_model(small_model),
@@ -294,7 +306,11 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
              "config_from_yaml": lambda: ConfigUtil.from_yaml(str(yaml_path)),
              "train_tool": lambda: train_main([str(yaml_path)]),
              "run_training": lambda: run_training(*ConfigUtil.from_yaml(str(yaml_path),
-                                                                        device="cpu"))}
+                                                                        device="cpu")),
+             "build_rrdb": lambda: build_generator_model(4, architecture="rrdb"),
+             "discriminator": lambda: Discriminator.initialize_relativistic(),
+             "esrgan_generator": lambda: Generator.esrgan_generator(4, num_blocks=1),
+             "gan_yaml": lambda: train_main([str(gan_path)])}
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
     assert not (tmp_path / "results").exists() or entry == "run_training"

@@ -38,7 +38,7 @@ def _randomised(variables, rng):
 
 def _port(variables, device="cpu", **config):
     module = build_generator_model(**config, device=device)
-    module.load_state_dict(from_flax_variables(jax.device_get(variables)))
+    module.load_state_dict(from_flax_variables(module, jax.device_get(variables)))
     return module
 
 
@@ -72,7 +72,7 @@ def test_flagship_weights_in_float32_match_flax():
                               batch_norm=False, dtype=jnp.float32)
     ref = np.asarray(flax_model.apply(jax_variables, jnp.asarray(x), train=False))
     module = build_generator_model(**config, device="cpu")
-    module.load_state_dict(from_flax_variables(variables))
+    module.load_state_dict(from_flax_variables(module, variables))
     np.testing.assert_allclose(_run(module, x), ref, rtol=0, atol=1e-4)
 
 
@@ -110,8 +110,13 @@ def test_pixel_shuffle_is_tf_dcr(r, c):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError):
-        build_generator_model(4, architecture="rrdb", device="cpu")
+    """RRDB builds (ported since; tests/test_torch_rrdb.py holds it against
+    flax); unknown scales and architectures raise."""
+    from simplesr_tpu_torch.models import RRDBNet
+
+    rrdb = build_generator_model(4, architecture="rrdb", num_blocks=1, num_filters=8,
+                                 device="cpu")
+    assert isinstance(rrdb, RRDBNet) and not rrdb.training
     with pytest.raises(ValueError):
         build_generator_model(3, device="cpu")
     with pytest.raises(ValueError):
@@ -120,8 +125,9 @@ def test_unported_configs_raise():
 
 def test_trunk_weights_follow_a_loaded_state_dict():
     config, variables = load_payload(BN_MODEL)
+    state = from_flax_variables(build_generator_model(**config, device="cpu"), variables)
     config = {**config, "batch_norm": False, "num_blocks": 2}
-    state = {k: v for k, v in from_flax_variables(variables).items()
+    state = {k: v for k, v in state.items()
              if "bn." not in k and not k.startswith(("blocks.2", "blocks.3"))}
     module = build_generator_model(**config, device="cpu")
     module.load_state_dict(state)

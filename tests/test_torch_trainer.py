@@ -211,17 +211,30 @@ def test_constructor_checks_and_unported_options(tmp_path):
         SRModel("resnet", gen, grad_accum_steps=0, device="cpu")
     with pytest.raises(ValueError):
         SRModel("resnet", gen, ema_decay=1.5, device="cpu")
-    unported = [dict(model_type="gan", discriminator=object(), discriminator_optimizer="Adam"),
-                dict(distill={"teacher": "x"}), dict(resnet_checkpoint=str(tmp_path)),
-                dict(mesh=object()), dict(tensor_parallel=True), dict(pipeline_parallel=True),
-                dict(paired_ways=2), dict(ema_decay=0.999), dict(grad_accum_steps=2)]
+    unported = [dict(distill={"teacher": "x"}), dict(mesh=object()), dict(tensor_parallel=True),
+                dict(pipeline_parallel=True), dict(paired_ways=2)]
     for kw in unported:
-        kw.setdefault("model_type", "resnet")
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SRModel(generator=gen, device="cpu", **kw)
+            SRModel("resnet", generator=gen, device="cpu", **kw)
+    # ported since: the GAN mode, the warm start, EMA and gradient accumulation
+    from simplesr_tpu_torch.train import Discriminator
+    from simplesr_tpu_torch.train.optimizers import MultiSteps
+
+    disc = Discriminator.initialize_standard(num_filters=8, input_dims=(8, 8), device="cpu")
+    assert SRModel("gan", gen, discriminator=disc, discriminator_optimizer="Adam",
+                   device="cpu").discriminator_wrapper() is disc
+    empty = tmp_path / "no_run" / "resnet"
+    empty.mkdir(parents=True)
+    with pytest.raises(ValueError, match="no checkpoint"):
+        SRModel("resnet", gen, resnet_checkpoint=str(empty), device="cpu")
+    x = np.zeros((1, 4, 4, 3), np.float32)
+    ema = SRModel("resnet", gen, ema_decay=0.999, device="cpu")
+    assert torch.equal(ema.generate(x, ema=True), ema.generate(x))
+    assert isinstance(SRModel("resnet", gen, grad_accum_steps=2, device="cpu").optimizer.inner,
+                      MultiSteps)
     model = SRModel("resnet", gen, config=_cfg(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.generate(np.zeros((1, 4, 4, 3), np.float32), ema=True)
+    with pytest.raises(ValueError, match="ema_decay"):
+        model.generate(x, ema=True)
     # writers and resume are ported: nothing to resume yet, then a resume point
     assert model.resume_training() is None
     model.save_resume_point()

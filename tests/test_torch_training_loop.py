@@ -58,7 +58,7 @@ def _yaml_dict(results, optimizer="SGD", lr=0.05, epochs=2):
 
 def _load_jax_weights(port_model, jax_model):
     module = port_model.generator()
-    state = from_flax_variables({"params": jax_model.state.g_params})
+    state = from_flax_variables(module, {"params": jax_model.state.g_params})
     module.load_state_dict(state)
 
 

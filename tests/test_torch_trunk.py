@@ -29,7 +29,7 @@ def trunk_case():
         if path[-1].key in ("alpha", "bias") else leaf, params)
     port = build_generator_model(2, num_blocks=BLOCKS, num_filters=64, batch_norm=False,
                                  dtype="bfloat16", device="cpu")
-    port.load_state_dict(from_flax_variables({"params": jax.device_get(params)}))
+    port.load_state_dict(from_flax_variables(port, {"params": jax.device_get(params)}))
     x = rng.normal(0, 1, (2, 16, 16, 64)).astype(np.float32)
     return params, port, x
 
