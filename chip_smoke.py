@@ -121,6 +121,32 @@ plain PyTorch version, in one process, with no arguments:
      the CPU on a 32 x 40 crop (max abs and the mean against the float32
      model, bounds at RRDB_ROUTE_MAX_ABS_TOL). Printed as phase 9's.
      The ``torch.profiler`` traces of phases 7 to 10 run last, in order.
+ 11. the serving surface on the flagship, each path with the launch counts
+     set to 0 just before and read just after: ``upscale_files`` with
+     ``fast=True`` (the polyphase tail, now the default) untiled and tiled
+     (trunk 1 / 11, patches 0 / 1), both forms' outputs against each other
+     at POLY_*_TOL, the tiled route's time in both forms (CUDA-event medians
+     of 20, in turns) and the two tails' stages on one batch of 8 tiles;
+     the x8 self-ensemble on a gallery crop and on the tiled route (2 trunk
+     launches per predictor call), against the mean of its 8 dihedral
+     outputs one by one; the paired trunk (``paired=2``, 128 wide, no trunk
+     launch) on 8 tiles of 192 and tiled, against the unpaired form, and
+     RRDB's paired and polyphase ("up") forms of RRDB_SERVED on the card
+     against the CPU; the socket daemon (``tools.serve.serve``, warm
+     shapes) with one ``SRClient`` session of 8 gallery PNGs, a JPEG body
+     and a garbage body (each output within a level of ``upscale_files``,
+     status 1 for both bad bodies, the session going on), then requests/s
+     and p50 / p99 latency at 1, 4 and 8 clients on 128 x 128 PNGs, from a
+     load generator in a process of its own, LOAD_REQUESTS requests at each
+     level; the
+     HTTP gateway (200 with the daemon's bytes, 400, ``/healthz``);
+     ``tools.run_example`` on an ``inference`` YAML (4 gallery PNGs and
+     phase 3's LR PNG: one patch launch, one trunk launch per model call)
+     and an ``evaluation`` YAML of the flagship (its default serving form
+     runs; PSNR / SSIM against the training form's); ``zoo.load`` of the
+     name ``srresnet_x4``, resolved to ZOO_SRRESNET_X4, and the
+     network interpolation of INTERP_PAIR at alpha 0.5 served, alpha 0
+     bit-equal to the PSNR file. Each cut is printed in ``reduced``.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -135,13 +161,17 @@ import faulthandler
 import json
 import os
 import signal
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import traceback
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -1449,6 +1479,543 @@ def esrgan_phase(dev, work, launches_by_path, card, tiled_png):
     return profile
 
 
+# Phase 11: the serving surface on the flagship.
+SERVE_TIMING_RUNS = 20
+# The polyphase form against the training form of the flagship at bf16 (CPU
+# test, tests/test_torch_polyphase.py, 4 gallery crops): max 7.2e-5, mean
+# 4.4e-7 on [-1, 1]. The head, the trunk and PolyUp_1 (at s = 1 the
+# training form's first subpixel conv) compute the same sums; PolyUp_2 and
+# PolyOut sum the same products in another order, so a bf16 rounding of
+# PolyUp_2 flips now and then and the output moves by a fraction of a
+# level. The card's convolution library picks another order for each of
+# the two shapes, so the bounds leave 70x and 100x room; a wrong phase order
+# moves the output by 0.1-1.
+POLY_MAX_ABS_TOL = 5e-3
+POLY_MEAN_ABS_TOL = 5e-5
+# The same difference in the evaluation's metrics (CPU test: under 1e-4 dB
+# and 1e-6 SSIM on the gallery crops).
+POLY_PSNR_TOL = 1e-2
+POLY_SSIM_TOL = 1e-4
+# The ensemble against the mean of its 8 dihedral outputs computed one by
+# one, each through the predictor at the group call's shapes (the input
+# repeated 4 times, so that the convolution library runs the same shapes):
+# the same values averaged in float32.
+ENSEMBLE_TOL = 1e-5
+# The paired trunk (128 wide, the ResBlock modules, flax's rounding points)
+# against the trunk kernel's rounding points: two bf16 models through 16
+# blocks, as the port against flax (tests/test_torch_srresnet.py: max 0.1,
+# mean 0.01; the flagship measured 0.035 / 0.0036 there, and the paired
+# trunk against the unpaired one on the CPU 0.032 / 0.0036,
+# tests/test_torch_paired.py).
+PAIRED_MAX_ABS_TOL = 0.1
+PAIRED_MEAN_ABS_TOL = 0.01
+# A committed, trained RRDB, served in its paired and polyphase ("up") forms
+# on the card against the CPU. Trained weights spread summation orders wider
+# than phase 10's two-epoch model: on this 32 x 40 crop its bf16 forms lie
+# 0.0207 from their float32 forms on the CPU (mean 1.2e-3;
+# tests/test_torch_polyphase.py). So each form is held to ROUTE_MAX_ABS_TOL
+# against the CPU and, as phase 10, to at most RRDB_MEAN_RATIO of the CPU's
+# mean error against the same form in float32.
+RRDB_SERVED = ROOT / "results/quality_r4/models/resnet_gen_rrdb_x4_best.msgpack"
+# A compatible committed pair for network interpolation (the same config:
+# the SRGAN stage was warm-started from that PSNR model); the script checks
+# the configs before it blends.
+INTERP_PAIR = (ROOT / "results/quality_r4/models/resnet_gen_srresnet_x4_best.msgpack",
+               ROOT / "results/quality_r4/models/gan_gen_srgan_x4_final.msgpack")
+# What a user of the repo gets for the zoo name "srresnet_x4": the newest
+# campaign that holds it (the zoo's rule); the chip copy must hold it too.
+ZOO_SRRESNET_X4 = ROOT / "results/quality_r5/models/resnet_gen_srresnet_x4_best.msgpack"
+DAEMON_PNGS = 8  # the smallest gallery PNGs, one session
+LOAD_CLIENTS = (1, 4, 8)
+# Requests at each concurrency, split over the clients: enough that p99 is
+# the mean of the 3 or 4 slowest, not the one slowest. A warm-up level of
+# LOAD_WARMUP (clients, requests) runs first and is not reported.
+LOAD_REQUESTS = 320
+LOAD_WARMUP = (2, 32)
+LOAD_TIMEOUT_S = 300
+LOAD_HW = (128, 128)
+YAML_GALLERY_PNGS = 4
+
+
+def _levels(a, b):
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def _load_client(socket_path, bodies, count, offset, latencies, failures):
+    """One client of the load generator: a persistent connection that sends
+    ``count`` bodies in the daemon's framing, each timed from its first byte
+    sent to its reply's last byte read (the reply is checked, not decoded)."""
+    frame = struct.Struct(">Q")
+    try:
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as sock:
+            sock.connect(socket_path)
+            reader = sock.makefile("rb")
+            for r in range(count):
+                body = bodies[(offset + r) % len(bodies)]
+                t0 = time.perf_counter()
+                sock.sendall(frame.pack(len(body)) + body)
+                head = reader.read(1 + frame.size)
+                payload = reader.read(frame.unpack(head[1:])[0])
+                latencies.append(time.perf_counter() - t0)
+                if head[:1] != b"\x00" or payload[:8] != b"\x89PNG\r\n\x1a\n":
+                    failures.append(f"request {r}: {payload[:200]!r}")
+    except Exception as e:  # reported by the caller
+        failures.append(repr(e))
+
+
+def load_generator(socket_path, body_paths, levels):
+    """The daemon's load: for each (clients, requests) of ``levels``, that
+    many threads, one connection each, the requests split over them.
+    Returns [(clients, latencies in s, wall s, failures), ...]."""
+    bodies = [Path(p).read_bytes() for p in body_paths]
+    results = []
+    for clients, requests in levels:
+        latencies, failures = [], []
+        threads = [threading.Thread(target=_load_client, args=(
+            socket_path, bodies, requests // clients, c, latencies, failures))
+            for c in range(clients)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        results.append((clients, latencies, time.perf_counter() - t0, failures))
+    return results
+
+
+def run_load(socket_path, bodies, work):
+    """``load_generator`` in a process of its own, as the daemon's users'
+    clients are (no share of the server's interpreter lock), over
+    LOAD_WARMUP and then LOAD_REQUESTS at each of LOAD_CLIENTS; requests/s
+    and latency over all requests of each level."""
+    body_paths = []
+    for i, body in enumerate(bodies):
+        body_paths.append(str(work / f"load_{i}.png"))
+        Path(body_paths[-1]).write_bytes(body)
+    spec = {"socket_path": socket_path, "body_paths": body_paths,
+            "levels": [LOAD_WARMUP] + [(n, LOAD_REQUESTS) for n in LOAD_CLIENTS]}
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke; print(json.dumps("
+         "chip_smoke.load_generator(**json.loads(sys.argv[1]))))", json.dumps(spec)],
+        cwd=ROOT, capture_output=True, text=True, timeout=LOAD_TIMEOUT_S)
+    if proc.returncode:
+        raise AssertionError(f"the load generator exited {proc.returncode}: {proc.stderr[-2000:]}")
+    under_load = {}
+    for clients, latencies, wall, failures in json.loads(proc.stdout.splitlines()[-1])[1:]:
+        if failures or len(latencies) != LOAD_REQUESTS:
+            raise AssertionError(f"load with {clients} clients: {len(latencies)} requests, "
+                                 f"failures {failures[:5]}")
+        ms = np.array(latencies) * 1e3
+        under_load[clients] = {
+            "requests": len(latencies), "requests_per_s": len(latencies) / wall,
+            "p50_ms": float(np.percentile(ms, 50)), "p90_ms": float(np.percentile(ms, 90)),
+            "p99_ms": float(np.percentile(ms, 99)), "max_ms": float(ms.max()),
+            "mean_ms": float(ms.mean())}
+    return under_load
+
+
+def alternating_ms(fns, runs, warmup=2):
+    """CUDA-event medians of several functions, run in turns ``runs`` times
+    after ``warmup`` turns."""
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(begin.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def tail_stage_ms(training, poly, lr_nhwc):
+    """CUDA-event times of the two tails' stages on one batch, each stage on
+    the input the previous one gives, from the shared features."""
+    from simplesr_tpu_torch.models.srresnet import output_conv
+    from simplesr_tpu_torch.ops.shuffle import depth_to_space_nchw
+
+    with torch.inference_mode():
+        h = training.features(lr_nhwc)
+        stages = [("subpixel_1", training.upsample[0]), ("subpixel_2", training.upsample[1]),
+                  ("out_conv_f32+tanh", lambda t: torch.tanh(output_conv(t, training.out)))]
+        poly_stages = [("PolyUp_1", lambda t: poly.poly_up(t, 1)),
+                       ("PolyUp_2", lambda t: poly.poly_up(t, 2)),
+                       ("PolyOut_f32+d2s+tanh", lambda t: torch.tanh(
+                           depth_to_space_nchw(poly.poly_out(t), 4)))]
+        times = {}
+        for chain in (stages, poly_stages):
+            x = h
+            for name, fn in chain:
+                times[name] = cuda_ms(lambda: fn(x), runs=10, warmup=2)
+                x = fn(x)
+    return times
+
+
+def serving_phase(dev, work, launches_by_path, card, tiled_png, tiled_lr, gallery_lr,
+                  lr_batch, tiled_batches):
+    """Phase 11: the serving surface (see the docstring)."""
+    from simplesr_tpu_torch import zoo
+    from simplesr_tpu_torch.config import ConfigUtil, _yaml
+    from simplesr_tpu_torch.data.png import encode_png, read_png, read_png_size, write_png
+    from simplesr_tpu_torch.eval.evaluation import (_as_predictor, _upscale,
+                                                    evaluate_on_validationdata)
+    from simplesr_tpu_torch.models import build_generator_model
+    from simplesr_tpu_torch.models.paired import rrdb_paired_model
+    from simplesr_tpu_torch.models.polyphase import (SRResNetPolyphase, polyphase_model,
+                                                     rrdb_polyphase_model)
+    from simplesr_tpu_torch.ops.ensemble import dihedral_inverse, dihedral_transform
+    from simplesr_tpu_torch.tools import serve as serve_mod
+    from simplesr_tpu_torch.tools.http_gateway import serve_http
+    from simplesr_tpu_torch.tools.interpolate import interpolate_models
+    from simplesr_tpu_torch.tools.run_example import main as run_example
+    from simplesr_tpu_torch.tools.upscale import upscale_files
+    from simplesr_tpu_torch.train import from_flax_variables, load_model, load_payload, save_model
+
+    start("11 the serving surface: polyphase, ensemble, paired, daemon, gateway, YAML, zoo")
+    t_phase = time.perf_counter()
+    gallery = sorted((ROOT / "data/corpus/gallery").glob("*.png"),
+                     key=lambda p: (np.prod(read_png_size(p)), p.name))  # smallest first
+    log(11, reduced={
+        "inference YAML": f"the {len(gallery)} gallery PNGs -> the {YAML_GALLERY_PNGS} "
+                          "smallest and the 1100 x 1040 LR PNG, grid off (PNG encode time)",
+        "evaluation YAML": f"{YAML_GALLERY_PNGS} gallery crops of 96 x 96",
+        "daemon session": f"the {DAEMON_PNGS} smallest gallery PNGs"})
+
+    # 1. the polyphase form, the new default
+    out_dir = work / "serve_out"
+    for label, png, want in (("polyphase_upscale_files_untiled", GALLERY_PNG,
+                              {"trunk": 1, "patches": 0}),
+                             ("polyphase_upscale_files_tiled", tiled_png,
+                              {"trunk": tiled_batches, "patches": 1})):
+        (written,), launches = counted(lambda: upscale_files(FLAGSHIP, [png], out_dir, 4,
+                                                             fast=True, device=dev))
+        launches_by_path[label] = launches
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    fast = _as_predictor(FLAGSHIP, device=dev)
+    slow = _as_predictor(FLAGSHIP, fast=False, device=dev)
+    with torch.inference_mode():
+        sr_fast = {"gallery": _upscale(fast, gallery_lr[None], 4),
+                   "tiled": _upscale(fast, tiled_lr[None], 4)}
+        sr_slow = {"gallery": _upscale(slow, gallery_lr[None], 4),
+                   "tiled": _upscale(slow, tiled_lr[None], 4)}
+    poly_diff = {k: {"max_abs": (sr_fast[k] - sr_slow[k]).abs().max().item(),
+                     "mean_abs": (sr_fast[k] - sr_slow[k]).abs().mean().item()}
+                 for k in sr_fast}
+    tiled_ms = alternating_ms({"fast": lambda: _upscale(fast, tiled_lr[None], 4),
+                               "training_form": lambda: _upscale(slow, tiled_lr[None], 4)},
+                              runs=SERVE_TIMING_RUNS)
+    training = load_model(FLAGSHIP, device=dev)
+    poly, _ = polyphase_model(training)
+    stages = tail_stage_ms(training, poly, lr_batch)
+    mpix = 16 * TILED_HW[0] * TILED_HW[1] / 1e6
+    log(11, check="polyphase (fast=True) against the training form", diff=poly_diff,
+        tol_max_abs=POLY_MAX_ABS_TOL, tol_mean_abs=POLY_MEAN_ABS_TOL,
+        launches={k: launches_by_path[k] for k in ("polyphase_upscale_files_untiled",
+                                                    "polyphase_upscale_files_tiled")},
+        tiled_ms=tiled_ms, tiled_output_mpix_per_s={k: mpix / (v / 1e3)
+                                                    for k, v in tiled_ms.items()},
+        training_over_fast=tiled_ms["training_form"] / tiled_ms["fast"],
+        tail_stage_ms_one_tiled_batch=stages, runs=SERVE_TIMING_RUNS, card=card)
+    for k, d in poly_diff.items():
+        if not (d["max_abs"] < POLY_MAX_ABS_TOL and d["mean_abs"] < POLY_MEAN_ABS_TOL):
+            raise AssertionError(f"polyphase vs training form on {k}: {d}")
+    if not isinstance(poly, SRResNetPolyphase) or not poly.uses_trunk_kernel:
+        raise AssertionError("the polyphase form lost the trunk kernel")
+
+    # 2. the x8 self-ensemble
+    ens = _as_predictor(FLAGSHIP, ensemble=True, device=dev)
+    crop = gallery_lr[:CROP_HW[0], :CROP_HW[1]][None].contiguous()
+    with torch.inference_mode():
+        sr_ens, crop_launches = counted(lambda: ens(crop))
+        groups = [k for k in range(8) if k % 2 == 0] + [k for k in range(8) if k % 2 == 1]
+        acc_group, acc_single = torch.zeros_like(sr_ens), torch.zeros_like(sr_ens)
+        for k in groups:
+            t = dihedral_transform(crop, k)
+            acc_group += dihedral_inverse(fast(torch.cat([t] * 4))[:1], k).float()
+            acc_single += dihedral_inverse(fast(t), k).float()
+        ens_err = (sr_ens - acc_group / 8).abs().max().item()
+        ens_single_err = (sr_ens - acc_single / 8).abs().max().item()
+        sr_ens_tiled, tiled_launches = counted(lambda: _upscale(ens, tiled_lr[None], 4))
+    launches_by_path["ensemble_crop"] = crop_launches
+    launches_by_path["ensemble_tiled"] = tiled_launches
+    ens_ms = {"crop": cuda_ms(lambda: ens(crop), runs=10, warmup=2),
+              "crop_fast": cuda_ms(lambda: fast(crop), runs=10, warmup=2),
+              "tiled": cuda_ms(lambda: _upscale(ens, tiled_lr[None], 4), runs=3, warmup=1)}
+    log(11, check="x8 self-ensemble", crop=list(crop.shape), launches_crop=crop_launches,
+        launches_tiled=tiled_launches, max_abs_vs_one_by_one_same_shapes=ens_err,
+        tol=ENSEMBLE_TOL, max_abs_vs_one_by_one_batch_1=ens_single_err, ms=ens_ms,
+        finite=bool(torch.isfinite(sr_ens_tiled).all()), card=card)
+    if crop_launches != {"trunk": 2, "patches": 0} or \
+            tiled_launches != {"trunk": 2 * tiled_batches, "patches": 1}:
+        raise AssertionError(f"ensemble launches {crop_launches}, {tiled_launches}")
+    if not ens_err < ENSEMBLE_TOL or not torch.isfinite(sr_ens_tiled).all():
+        raise AssertionError(f"ensemble vs its 8 outputs one by one: {ens_err}")
+
+    # 3. the paired trunk (128 wide, cuDNN), and RRDB's paired and polyphase forms
+    paired = _as_predictor(FLAGSHIP, paired=2, device=dev)
+    with torch.inference_mode():
+        sr_paired, batch_launches = counted(lambda: paired(lr_batch))
+        sr_unpaired = fast(lr_batch)
+        sr_paired_tiled, paired_tiled_launches = counted(
+            lambda: _upscale(paired, tiled_lr[None], 4))
+    launches_by_path["paired_batch_of_8_tiles"] = batch_launches
+    launches_by_path["paired_tiled"] = paired_tiled_launches
+    paired_diff = {k: {"max_abs": (a - b).abs().max().item(),
+                       "mean_abs": (a - b).abs().mean().item()}
+                   for k, a, b in (("batch", sr_paired, sr_unpaired),
+                                   ("tiled", sr_paired_tiled, sr_fast["tiled"]))}
+    paired_ms = alternating_ms({"paired_batch": lambda: paired(lr_batch),
+                                "unpaired_batch": lambda: fast(lr_batch)}, runs=10)
+    paired_ms.update(alternating_ms(
+        {"paired_tiled": lambda: _upscale(paired, tiled_lr[None], 4),
+         "unpaired_tiled": lambda: _upscale(fast, tiled_lr[None], 4)}, runs=5, warmup=1))
+    rrdb_x = torch.from_numpy(read_png(GALLERY_PNG)[:32, :40, :3] / 255.0).float()
+    rrdb_x = torch.stack([rrdb_x, rrdb_x.flip(1)])
+    rrdb_cpu = load_model(RRDB_SERVED, device="cpu")
+    config, variables = load_payload(RRDB_SERVED)
+    rrdb_f32 = build_generator_model(**dict(config, dtype="float32"), device="cpu")
+    rrdb_f32.load_state_dict(from_flax_variables(rrdb_f32, variables))
+    rrdb = {}
+    with torch.inference_mode():
+        for label, form in (("rrdb_paired", lambda m: rrdb_paired_model(m, ways=2)[0]),
+                            ("rrdb_polyphase_up", lambda m: rrdb_polyphase_model(m, mode="up")[0])):
+            cpu_fn, exact_fn = form(rrdb_cpu), form(rrdb_f32)
+            card_fn = copy.deepcopy(cpu_fn).to(dev)
+            out, launches = counted(lambda: card_fn(rrdb_x.to(dev)))
+            launches_by_path[label] = launches
+            out, cpu, exact = out.cpu(), cpu_fn(rrdb_x), exact_fn(rrdb_x)
+            rrdb[label] = {"max_abs_card_vs_cpu": (out - cpu).abs().max().item(),
+                           "card_vs_float32_mean_abs": (out - exact).abs().mean().item(),
+                           "cpu_vs_float32_mean_abs": (cpu - exact).abs().mean().item(),
+                           "launches": launches}
+    log(11, check="paired trunk", diff_vs_unpaired=paired_diff, tol_max_abs=PAIRED_MAX_ABS_TOL,
+        tol_mean_abs=PAIRED_MEAN_ABS_TOL, launches_batch=batch_launches,
+        launches_tiled=paired_tiled_launches, ms=paired_ms, rrdb=rrdb,
+        rrdb_file=str(RRDB_SERVED.relative_to(ROOT)), rrdb_tol_max_abs=ROUTE_MAX_ABS_TOL,
+        rrdb_mean_ratio_tol=RRDB_MEAN_RATIO, card=card)
+    for k, d in paired_diff.items():
+        if not (d["max_abs"] < PAIRED_MAX_ABS_TOL and d["mean_abs"] < PAIRED_MEAN_ABS_TOL):
+            raise AssertionError(f"paired vs unpaired on {k}: {d}")
+    if batch_launches != {"trunk": 0, "patches": 0} or \
+            paired_tiled_launches != {"trunk": 0, "patches": 1}:
+        raise AssertionError(f"paired launches {batch_launches}, {paired_tiled_launches}")
+    for label, r in rrdb.items():
+        if not (r["max_abs_card_vs_cpu"] < ROUTE_MAX_ABS_TOL and r["card_vs_float32_mean_abs"]
+                <= RRDB_MEAN_RATIO * r["cpu_vs_float32_mean_abs"]) or r["launches"]["trunk"]:
+            raise AssertionError(f"{label} on the card vs the CPU: {r}")
+
+    # 4. the daemon: one session of gallery PNGs and two bad bodies, then load
+    daemon_dir = work / "daemon"
+    daemon_dir.mkdir()
+    pngs = gallery[:DAEMON_PNGS]
+    refs = [read_png(p) for p in upscale_files(FLAGSHIP, pngs, daemon_dir / "ref", 4,
+                                               device=dev)]
+    rng = np.random.default_rng(SEED)
+    load_pngs = []
+    for p in pngs:
+        img = read_png(p)[:, :, :3]
+        y, x = (int(rng.integers(0, n - s + 1)) for n, s in zip(img.shape[:2], LOAD_HW))
+        load_pngs.append(encode_png(np.ascontiguousarray(img[y:y + LOAD_HW[0], x:x + LOAD_HW[1]])))
+    cwd = os.getcwd()
+    os.chdir(daemon_dir)  # a short, relative socket path
+    ready, stop = threading.Event(), threading.Event()
+    server = threading.Thread(target=serve_mod.serve, args=(FLAGSHIP, 4), daemon=True, kwargs=dict(
+        socket_path="sr.sock", ready_event=ready, stop_event=stop, warm_shapes=(LOAD_HW,),
+        device=dev))
+    t = time.perf_counter()
+    server.start()
+    try:
+        if not ready.wait(300):
+            raise AssertionError("the daemon did not become ready")
+        start_s = time.perf_counter() - t
+        bad = {}
+
+        def session():
+            levels = []
+            with serve_mod.SRClient("sr.sock") as client:
+                for i, (p, ref) in enumerate(zip(pngs, refs)):
+                    levels.append(_levels(client.upscale_file(p), ref))
+                    if i == 1:
+                        for name, body in (("jpeg", b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)),
+                                           ("garbage", b"not an image")):
+                            try:
+                                client.upscale_bytes(body)
+                                bad[name] = "status 0"
+                            except serve_mod.SRError as e:
+                                bad[name] = str(e)
+                serve_mod._send_blob(client._sock, load_pngs[0])
+                bad["raw_reply"] = serve_mod._recv_reply(client._sock)
+            return levels
+
+        levels, session_launches = counted(session)
+        launches_by_path["daemon_session"] = session_launches
+        daemon_reply = bad.pop("raw_reply")
+        t = time.perf_counter()
+        under_load = run_load(str(daemon_dir / "sr.sock"), load_pngs, daemon_dir)
+        load_s = time.perf_counter() - t
+    finally:
+        stop.set()
+        server.join(timeout=60)
+        os.chdir(cwd)
+    log(11, check="daemon", start_s=start_s, pngs=[p.name for p in pngs],
+        max_levels_vs_upscale_files=levels, bad_bodies=bad, launches_session=session_launches,
+        load_hw=list(LOAD_HW), load_requests=LOAD_REQUESTS, load_warmup=list(LOAD_WARMUP),
+        load_generator="a process of its own, one thread and connection per client",
+        under_load=under_load, load_s=load_s, stopped=not server.is_alive(), card=card)
+    if max(levels) > PNG_MAX_LEVELS or len(levels) != len(pngs):
+        raise AssertionError(f"daemon outputs vs upscale_files: {levels}")
+    if not ("JPEG" in bad["jpeg"] and "not a PNG" in bad["garbage"]):
+        raise AssertionError(f"bad bodies: {bad}")
+    if session_launches != {"trunk": len(pngs) + 1, "patches": 0} or server.is_alive():
+        raise AssertionError(f"daemon session launches {session_launches}")
+
+    # 5. the HTTP gateway
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # localhost only
+
+    def http(url, data=None):
+        try:
+            with opener.open(urllib.request.Request(url, data=data), timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    ready, stop, box = threading.Event(), threading.Event(), {}
+    gateway = threading.Thread(target=serve_http, args=(FLAGSHIP, 4, 0), daemon=True, kwargs=dict(
+        ready_event=ready, stop_event=stop, on_server=lambda s: box.update(s=s), device=dev))
+    gateway.start()
+    try:
+        if not ready.wait(300):
+            raise AssertionError("the gateway did not become ready")
+        url = f"http://127.0.0.1:{box['s'].server_address[1]}"
+        (code, body), http_launches = counted(lambda: http(url + "/upscale", load_pngs[0]))
+        garbage_code, _ = http(url + "/upscale", b"not an image")
+        health_code, health = http(url + "/healthz")
+    finally:
+        stop.set()
+        gateway.join(timeout=60)
+    launches_by_path["http_gateway_post"] = http_launches
+    gateway_result = {"post": code, "same_bytes_as_daemon": body == daemon_reply[1],
+                      "garbage": garbage_code, "healthz": [health_code, json.loads(health)],
+                      "launches": http_launches, "stopped": not gateway.is_alive()}
+    log(11, check="HTTP gateway", **gateway_result)
+    if not (code == 200 and daemon_reply[0] and body == daemon_reply[1] and garbage_code == 400
+            and health_code == 200 and http_launches == {"trunk": 1, "patches": 0}):
+        raise AssertionError(f"gateway: {gateway_result}")
+
+    # 6. the YAML operations
+    infer = work / "yaml_inference"
+    data = infer / "data" / "lr"
+    data.mkdir(parents=True)
+    for p in gallery[:YAML_GALLERY_PNGS]:
+        (data / p.name).write_bytes(p.read_bytes())
+    (data / tiled_png.name).write_bytes(tiled_png.read_bytes())
+    general = {"data_paths": str(infer / "data"), "test_originals_path": None,
+               "model_paths": [str(FLAGSHIP)], "scale": 4, "batch_size": 1,
+               "save_single": True, "grid": False}
+    spec = {"general": {"operation": "inference", "results_save_path": str(infer / "results"),
+                        "interpolate": True, **general}}
+    (infer / "inference.yaml").write_text(_yaml.dump(spec))
+    calls = {"model": 0}
+
+    def counting(original):
+        def wrapper(self, *a, **k):
+            calls["model"] += 1
+            return original(self, *a, **k)
+        return wrapper
+
+    t = time.perf_counter()
+    with patched(SRResNetPolyphase, "forward", counting):
+        code, yaml_launches = counted(lambda: run_example([str(infer / "inference.yaml"),
+                                                               "--device", dev.type]))
+    inference_s = time.perf_counter() - t
+    launches_by_path["run_example_inference_yaml"] = yaml_launches
+    singles = sorted(p.name for p in (infer / "results").rglob("single/*.png"))
+    expected_calls = YAML_GALLERY_PNGS + tiled_batches
+    evaluation = work / "yaml_evaluation"
+    hr = evaluation / "hr" / "gallery"
+    hr.mkdir(parents=True)
+    for p in gallery[:YAML_GALLERY_PNGS]:
+        write_png(hr / p.name, np.ascontiguousarray(read_png(p)[:96, :96, :3]))
+    spec = {"general": {**general, "operation": "evaluation",
+                        "data_paths": str(evaluation / "hr"),
+                        "results_save_path": str(evaluation / "results"),
+                        "resize_filter": "bicubic", "crop_imgs": False, "save_single": False}}
+    (evaluation / "evaluation.yaml").write_text(_yaml.dump(spec))
+    eval_code, eval_launches = counted(lambda: run_example([str(evaluation / "evaluation.yaml"),
+                                                         "--device", dev.type]))
+    launches_by_path["run_example_evaluation_yaml"] = eval_launches
+    conf, pipeline = ConfigUtil.from_yaml(spec, device=dev)
+    metrics = {form: evaluate_on_validationdata(conf, pipeline=pipeline, calc_stats=True,
+                                                fast=form == "fast", device=dev)[FLAGSHIP.stem]
+               for form in ("fast", "training_form")}
+    metric_diff = {m: float(np.abs(metrics["fast"][m] - metrics["training_form"][m]).max())
+                   for m in ("psnr", "psnr-y", "ssim")}
+    log(11, check="YAML operations", inference_exit=code, inference_launches=yaml_launches,
+        model_calls=calls["model"], expected_model_calls=expected_calls, singles=len(singles),
+        inference_s=inference_s, evaluation_exit=eval_code, evaluation_launches=eval_launches,
+        mean_psnr={k: float(np.mean(v["psnr"])) for k, v in metrics.items()},
+        mean_ssim={k: float(np.mean(v["ssim"])) for k, v in metrics.items()},
+        max_metric_diff_fast_vs_training_form=metric_diff, tol_psnr_db=POLY_PSNR_TOL,
+        tol_ssim=POLY_SSIM_TOL)
+    if code != 0 or yaml_launches != {"trunk": expected_calls, "patches": 1} or \
+            calls["model"] != expected_calls or len(singles) != YAML_GALLERY_PNGS + 1:
+        raise AssertionError(f"inference YAML: exit {code}, launches {yaml_launches}, "
+                             f"calls {calls}, singles {singles}")
+    if eval_code != 0 or eval_launches != {"trunk": YAML_GALLERY_PNGS, "patches": 0}:
+        raise AssertionError(f"evaluation YAML: exit {eval_code}, launches {eval_launches}")
+    if not (metric_diff["psnr"] < POLY_PSNR_TOL and metric_diff["psnr-y"] < POLY_PSNR_TOL
+            and metric_diff["ssim"] < POLY_SSIM_TOL):
+        raise AssertionError(f"evaluation metrics, fast vs training form: {metric_diff}")
+
+    # 7. zoo: and network interpolation
+    entry = zoo.describe("srresnet_x4")
+    if Path(entry.path).resolve() != ZOO_SRRESNET_X4.resolve():
+        raise AssertionError(f"zoo name srresnet_x4 resolves to {entry.path}, "
+                             f"expected {ZOO_SRRESNET_X4}")
+    zoo_predict = zoo.load("srresnet_x4", device=dev)
+    with torch.inference_mode():
+        zoo_out, zoo_launches = counted(lambda: zoo_predict(crop))
+    launches_by_path["zoo_load_srresnet_x4"] = zoo_launches
+    pair = INTERP_PAIR
+    _, psnr_vars = load_payload(pair[0])
+    if load_payload(pair[0])[0] != load_payload(pair[1])[0]:
+        raise AssertionError(f"{pair}: the configs differ")
+    cfg, blended = interpolate_models(*pair, 0.5)
+    blend_path = work / "blend_a0.5.msgpack"
+    save_model(cfg, blended, blend_path)
+    with torch.inference_mode():
+        blend_out, blend_launches = counted(lambda: _as_predictor(blend_path, device=dev)(crop))
+    launches_by_path["interpolated_model_served"] = blend_launches
+    _, alpha0 = interpolate_models(*pair, 0.0)
+
+    def leaves(tree, prefix=()):
+        for k, v in sorted(tree.items()):
+            yield from leaves(v, prefix + (k,)) if isinstance(v, dict) else [(prefix + (k,), v)]
+
+    alpha0_equal = [p for p, _ in leaves(alpha0)] == [p for p, _ in leaves(psnr_vars)] and all(
+        np.array_equal(a, b) for (_, a), (_, b) in zip(leaves(alpha0), leaves(psnr_vars)))
+    log(11, check="zoo and interpolation", zoo_entry={
+        "name": entry.name, "qualified": entry.qualified,
+        "path": str(Path(entry.path).relative_to(ROOT)),
+        "expected": str(ZOO_SRRESNET_X4.relative_to(ROOT))}, zoo_launches=zoo_launches,
+        zoo_finite=bool(torch.isfinite(zoo_out).all()),
+        pair=[str(p.relative_to(ROOT)) for p in pair], config=cfg,
+        blend_launches=blend_launches, blend_finite=bool(torch.isfinite(blend_out).all()),
+        alpha0_bit_equal_to_psnr_file=alpha0_equal)
+    if not (zoo_launches == {"trunk": 1, "patches": 0} and torch.isfinite(zoo_out).all()
+            and torch.isfinite(blend_out).all() and alpha0_equal
+            and blend_launches["patches"] == 0):
+        raise AssertionError("zoo or interpolation failed")
+    log(11, phase_s=time.perf_counter() - t_phase)
+
+
 def main(work):
     from simplesr_tpu_torch.data.png import read_img, read_png, write_png
     from simplesr_tpu_torch.eval.evaluation import (_TILE_BATCH, _TILE_OVERLAP, _TILE_PATCH,
@@ -1726,6 +2293,8 @@ def main(work):
     profile_yaml_run = yaml_phase(dev, work, launches_by_path, smi_line)
     profile_srgan = srgan_phase(dev, work, launches_by_path, smi_line)
     profile_esrgan = esrgan_phase(dev, work, launches_by_path, smi_line, tiled_png)
+    serving_phase(dev, work, launches_by_path, smi_line, tiled_png, tiled_lr, gallery_lr,
+                  lr_batch, tiled_batches)
     # the profilers of phases 7 to 10 last, after every timing
     for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan):
         profile()

@@ -255,8 +255,9 @@ class ConfigUtil:
                           operation="evaluation", save_single=True, grid=False,
                           interpolate=False, with_original=False,
                           combine_halfs=False, self_ensemble=False):
-        """Evaluation and inference-mode config. ``self_ensemble=True`` (the
-        x8 geometric test-time ensemble) is not ported yet."""
+        """Evaluation and inference-mode config. ``self_ensemble=True``
+        serves every model through the x8 geometric test-time ensemble
+        (``ops/ensemble.py``)."""
         _data_paths = ConfigUtil._extract_multiple_data_paths(data_paths)
         conf = ConfigUtil(
             operation=operation, num_epochs=None, batch_size=batch_size,

@@ -1,10 +1,15 @@
 """PNG reading and writing with the standard library (zlib, struct) and
-numpy, in place of PIL.
+numpy, in place of PIL: files (``read_png``, ``write_png``) and bytes
+(``decode_png``, ``encode_png``, as the serving daemon and gateway use them).
 
 ``read_img`` reads 8-bit, non-interlaced PNGs of colour type 0 (grey),
 2 (RGB) and 6 (RGBA), with all five row filters, to float32 [0, 255] RGB
 HWC, as simplesr_tpu.data.read_img does through PIL's ``convert("RGB")``
 (grey is repeated over the channels, alpha is dropped). Anything else raises.
+Bodies come from outside the program (the daemon, the gateway), so decoding
+is bounded as PIL bounds it: an image of more than ``MAX_PIXELS`` pixels is
+refused from its header, and the image data is inflated no further than the
+header's size.
 """
 
 import struct
@@ -14,6 +19,8 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}
+# PIL's refusal (DecompressionBombError): twice its MAX_IMAGE_PIXELS
+MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 
 
 def _chunks(data):
@@ -76,10 +83,9 @@ def _unfilter(raw, height, stride, bpp):
     return out
 
 
-def read_png(path):
-    """Decode a PNG to uint8 (H, W, C), C = 1, 3 or 4 as stored."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_png(data, name="PNG"):
+    """Decode PNG bytes to uint8 (H, W, C), C = 1, 3 or 4 as stored.
+    ``name`` names the source in errors."""
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -87,18 +93,33 @@ def read_png(path):
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
+        raise ValueError(f"{name}: PNG without IHDR")
     width, height, depth, colour, _, _, interlace = header
     if depth != 8 or colour not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit, non-interlaced grey, RGB or RGBA PNGs "
+        raise ValueError(f"{name}: only 8-bit, non-interlaced grey, RGB or RGBA PNGs "
                          f"are read (depth {depth}, colour type {colour}, "
                          f"interlace {interlace})")
+    if max(width, 1) * max(height, 1) > MAX_PIXELS:
+        raise ValueError(f"{name}: image of {width} x {height} pixels exceeds the limit of "
+                         f"{MAX_PIXELS} pixels (a decompression bomb?)")
     channels = _CHANNELS[colour]
     stride = width * channels
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != height * (stride + 1):
-        raise ValueError(f"{path}: image data has the wrong length")
+    expected = height * (stride + 1)
+    try:  # one byte past the header's size tells too long from exact
+        raw = zlib.decompressobj().decompress(b"".join(idat), expected + 1)
+    except zlib.error as e:
+        raise ValueError(f"{name}: corrupt image data ({e})") from None
+    if len(raw) > expected:
+        raise ValueError(f"{name}: image data inflates past its {width} x {height} header")
+    if len(raw) != expected:
+        raise ValueError(f"{name}: image data has the wrong length")
     return _unfilter(raw, height, stride, channels).reshape(height, width, channels)
+
+
+def read_png(path):
+    """Decode a PNG file to uint8 (H, W, C), C = 1, 3 or 4 as stored."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), str(path))
 
 
 def read_png_size(path):
@@ -111,13 +132,17 @@ def read_png_size(path):
     return height, width
 
 
-def read_rgb_u8(path):
-    """Decode a PNG to uint8 RGB (H, W, 3): grey repeated over the channels,
+def as_rgb(img):
+    """uint8 (H, W, C) as RGB (H, W, 3): grey repeated over the channels,
     alpha dropped, as PIL's ``convert("RGB")`` gives it."""
-    img = read_png(path)
     if img.shape[2] == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[:, :, :3])
+
+
+def read_rgb_u8(path):
+    """Decode a PNG file to uint8 RGB (H, W, 3)."""
+    return as_rgb(read_png(path))
 
 
 def read_img(fpath):
@@ -125,16 +150,17 @@ def read_img(fpath):
     return read_rgb_u8(fpath).astype(np.float32)
 
 
-def write_png(path, img):
-    """Write a uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) array as PNG."""
+def encode_png(img):
+    """A uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) array as PNG
+    bytes (filter type 0, zlib level 6)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8, got {img.dtype}")
+        raise ValueError(f"encode_png takes uint8, got {img.dtype}")
     if img.ndim == 2:
         img = img[:, :, None]
-    colour = {1: 0, 3: 2, 4: 6}.get(img.shape[2])
-    if img.ndim != 3 or colour is None:
-        raise ValueError(f"write_png takes 1, 3 or 4 channels, got {img.shape}")
+    colour = {1: 0, 3: 2, 4: 6}.get(img.shape[2]) if img.ndim == 3 else None
+    if colour is None:
+        raise ValueError(f"encode_png takes 1, 3 or 4 channels, got {img.shape}")
     height, width = img.shape[:2]
     rows = np.concatenate([np.zeros((height, 1), np.uint8),
                            np.ascontiguousarray(img).reshape(height, -1)], axis=1)
@@ -144,6 +170,12 @@ def write_png(path, img):
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
     header = struct.pack(">IIBBBBB", width, height, 8, colour, 0, 0, 0)
+    return (_SIGNATURE + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path, img):
+    """Write a uint8 (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) array as PNG."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", header)
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+        f.write(data)

@@ -1,10 +1,12 @@
 """Evaluation and inference operations, as simplesr_tpu.eval.evaluation:
-turning a model into a predictor, the upscale that sends LR images over
-1000 x 1000 through the overlap-tiled route (128 px patches, 32 px overlap,
-batches of 8), and ``evaluate_on_validationdata``, the paired evaluation
-(PSNR, PSNR on Y and SSIM per image with max_val 2.0 on [-1, 1], the
-interpolated row, single images, half-splits and grids). The unpaired
-``evaluate_on_testdata`` is not ported yet (ROADMAP.md, Queue 1).
+turning a model into a predictor in its serving form, the upscale that sends
+LR images over 1000 x 1000 through the overlap-tiled route (128 px patches,
+32 px overlap, batches of 8), ``evaluate_on_validationdata``, the paired
+evaluation (PSNR, PSNR on Y and SSIM per image with max_val 2.0 on [-1, 1],
+the interpolated row, single images, half-splits and grids), and
+``evaluate_on_testdata``, the unpaired inference over test images (singles,
+half-splits, nearest-interpolated and grids), which tiles every large image
+together per model through ``tiled_apply_many``.
 """
 
 import logging
@@ -20,7 +22,7 @@ from simplesr_tpu_torch.core.ranges import to_11_from_01
 from simplesr_tpu_torch.eval import rendering
 from simplesr_tpu_torch.ops import metrics as metrics_lib
 from simplesr_tpu_torch.ops.resize import resize as _resize
-from simplesr_tpu_torch.ops.tiling import tiled_apply
+from simplesr_tpu_torch.ops.tiling import tiled_apply, tiled_apply_many
 from simplesr_tpu_torch.utils import logger as logger_mod
 
 log = logging.getLogger(logger_mod.RESULTS_LOGGER)
@@ -31,47 +33,78 @@ _TILE_OVERLAP = 32
 _TILE_BATCH = 8
 
 
-def _as_predictor(model, fast=False, ensemble=False, paired=0, device="cuda"):
+def check_tile_threshold(tile_threshold):
+    """Refuse a tile threshold other than the route's own: ``tile_threshold``
+    stays in the serving signatures for the JAX package's sake, but
+    ``_upscale`` tiles over ``_TILE_MIN_HW`` whatever it says."""
+    if tile_threshold != _TILE_MIN_HW:
+        raise ValueError(f"tile_threshold must be {_TILE_MIN_HW}, the tiled route's fixed "
+                         f"threshold; got {tile_threshold}")
+
+
+def _pad_to_multiple(fn, ways):
+    """``fn`` made safe for any batch when it needs one divisible by
+    ``ways``: pad with repeats of the first item up to the next multiple
+    (batch entries are independent through the convs) and slice the padding
+    back off."""
+    def padded(x):
+        b = x.shape[0]
+        r = (-b) % ways
+        if r:
+            x = torch.cat([x, x[:1].expand(r, *x.shape[1:])], dim=0)
+        return fn(x)[:b]
+
+    return padded
+
+
+def _as_predictor(model, fast=True, ensemble=False, paired=0, device="cuda"):
     """Normalise an SRModel, a Generator, a model path, a ``(module,
-    state_dict)`` pair or a callable into ``fn(lr_nhwc) -> sr_nhwc``. An
-    SRModel or a Generator serves its ``generate`` whatever ``fast`` says,
-    as in the JAX package. The port serves the training form of a saved
-    model: the polyphase rewrite (``fast`` on a path or a pair), the
-    self-ensemble and the paired trunk are not ported yet."""
+    state_dict)`` pair or a callable into ``fn(lr_nhwc) -> sr_nhwc`` on
+    ``device``.
+
+    ``fast=True`` (the default) serves a path or a pair in the exact serving
+    form where one exists (``models.polyphase.fast_inference``: the
+    polyphase tail for SRResNet); ``fast=False`` serves the training form.
+    ``ensemble=True`` wraps the predictor in the x8 geometric self-ensemble
+    (``ops/ensemble.py``; on the tiled route per tile). ``paired=w`` serves
+    a saved SRResNet or RRDB through the paired trunk (``models/paired.py``),
+    padding batches that ``w`` does not divide. An SRModel or a Generator
+    serves its ``generate`` whatever ``fast`` says, as in the JAX package."""
+    from simplesr_tpu_torch.models.polyphase import fast_inference
+    from simplesr_tpu_torch.ops.ensemble import ensemble_predictor
     from simplesr_tpu_torch.train.generator import Generator
     from simplesr_tpu_torch.train.serialization import load_model
     from simplesr_tpu_torch.train.sr_model import SRModel
 
-    if ensemble:
-        raise NotImplementedError(
-            "the x8 self-ensemble is not ported yet: ROADMAP.md, Queue 1, "
-            "large-image and serving inference")
+    wrap = ensemble_predictor if ensemble else (lambda fn: fn)
     if paired:
-        raise NotImplementedError(
-            "the paired trunk is not ported yet: ROADMAP.md, Queue 1, "
-            "exact serving rewrites")
+        inner_wrap, wrap = wrap, (lambda fn: inner_wrap(_pad_to_multiple(fn, paired)))
+
     if isinstance(model, (SRModel, Generator)):
-        return model.generate
-    if fast and isinstance(model, (str, os.PathLike, tuple)):
-        raise NotImplementedError(
-            "fast=True (the polyphase serving rewrite) is not ported yet: "
-            "ROADMAP.md, Queue 1, exact serving rewrites; pass fast=False")
+        return wrap(model.generate)
     if isinstance(model, (str, os.PathLike)):
-        module = load_model(str(model), device=device)
+        device = resolve_device(device)
+        module = load_model(str(model), device="cpu")
+        state = module.state_dict()
     elif isinstance(model, tuple) and len(model) == 2 and isinstance(model[0], nn.Module):
-        module, state_dict = model
-        module.load_state_dict(state_dict)
-        module = module.to(resolve_device(device)).eval()
+        device = resolve_device(device)
+        module, state = model
     elif callable(model):
-        return model
+        return wrap(model)
     else:
         raise TypeError(f"cannot build a predictor from {type(model)}")
+    if fast or paired:
+        # paired with fast=False keeps the training-form tail; RRDB keeps
+        # its training-form tail either way
+        module, state = fast_inference(module, state, paired_ways=paired, polyphase=fast)
+    module.load_state_dict(state)
+    module = module.to(device).eval()
 
     def predict(x):
         with torch.inference_mode():
             return module(x)
 
-    return predict
+    return wrap(predict)
 
 
 def _hw(tensor):
@@ -215,3 +248,77 @@ def evaluate_on_validationdata(config, model_name="", pipeline=None, model=None,
             log.info(f"Average PSNR on y-channel for {name}: {np.mean(res[psnr_y_key]):.4f}")
             log.info(f"Average SSIM for {name}: {np.mean(res['ssim']):.4f}")
     return results
+
+
+def evaluate_on_testdata(config, model_name="", pipeline=None, model=None,
+                         save_single=True, combine_halfs=False, interpolate=True, grid=True,
+                         with_original=False, save_prefix="", fast=True, ensemble=None,
+                         device="cuda"):
+    """Unpaired inference over the pipeline's test images (the inference
+    pipeline of ``config`` on ``device`` when none is given). Returns one
+    ``{model or "interpolated": SR batch}`` per test batch."""
+    from simplesr_tpu_torch.data import DataPipeline
+
+    if pipeline is None:
+        pipeline = DataPipeline.inference_pipeline(config, device=device)
+    if ensemble is None:
+        ensemble = bool(getattr(config, "self_ensemble", False))
+    models = _load_models(config, model, model_name, fast=fast, ensemble=ensemble,
+                          device=device)
+    scale = config.scale
+    pic_dir = getattr(config, "pic_dir", ".")
+    batch_size = getattr(config, "batch_size", 1)
+
+    # Two passes: the batches first, so that the images over 1000 x 1000 are
+    # tiled together per model (tiled_apply_many pools their patches into
+    # shared chunks: one ragged chunk in all instead of one per image).
+    batches = list(pipeline.test_batch_generator(batch_size))
+    tiled_idx = [i for i, (lr, _) in enumerate(batches) if _eligible_efficient_inference(lr)]
+    tiled_sr = {}
+    for name, predict in models.items():
+        if not tiled_idx:
+            break
+        imgs = [batches[i][0] for i in tiled_idx]
+        imgs = [x[0] if x.dim() == 4 else x for x in imgs]
+        outs = tiled_apply_many(predict, imgs, (_TILE_PATCH, _TILE_PATCH),
+                                overlap=_TILE_OVERLAP, scale=scale, batch_size=_TILE_BATCH)
+        tiled_sr[name] = dict(zip(tiled_idx, outs))
+
+    outputs = []
+    for idx, (lr_batch, file_paths) in enumerate(batches):
+        original_name = Path(str(file_paths[0])).parent.stem
+        results = {}
+        for name, predict in models.items():
+            if idx in tiled_sr.get(name, {}):
+                sr_batch = tiled_sr[name][idx][None]
+            else:
+                sr_batch = _upscale(predict, lr_batch, scale)
+            results[name] = sr_batch
+            if save_single:
+                rendering.save_single(sr_batch, os.path.join(pic_dir, original_name, "single"),
+                                      f"{save_prefix}{idx}_{original_name}_{name}")
+            if combine_halfs:
+                rendering.combine_halfs(
+                    left_tensor=sr_batch, right_tensor=_resize(lr_batch, _hw(sr_batch)),
+                    left_label=name, right_label="interpolated",
+                    save_dir=os.path.join(pic_dir, original_name, "half"),
+                    fname=f"{save_prefix}{idx}_{original_name}_{name}")
+
+        if interpolate and results:
+            some_sr = next(iter(results.values()))
+            results["interpolated"] = _resize(lr_batch, _hw(some_sr), method="nearest")
+            if save_single:
+                rendering.save_single(results["interpolated"],
+                                      os.path.join(pic_dir, "interpolated"),
+                                      f"{save_prefix}{idx}")
+
+        original = None
+        if with_original:
+            original = getattr(config, "test_originals", {}).get(original_name)
+
+        if grid:
+            rendering.prepare_image_grid(
+                save_dir=os.path.join(pic_dir, "grids"), fname=f"{save_prefix}{idx}_{original_name}",
+                low_res_key=None, psnr=None, original=original, **results)
+        outputs.append(results)
+    return outputs

@@ -1,10 +1,14 @@
 """Model family: SRResNet, RRDB (ESRGAN), the discriminator and VGG
-features."""
+features; the polyphase and paired serving forms of the generators."""
 
 from simplesr_tpu_torch.core.device import resolve_device
 from simplesr_tpu_torch.core.dtypes import dtype_from_name
 from simplesr_tpu_torch.models.blocks import ConvLayer, PReLU, SubpixelConvBlock
 from simplesr_tpu_torch.models.discriminator import Discriminator
+from simplesr_tpu_torch.models.paired import (RRDBNetPaired, SRResNetPaired,
+                                              SRResNetPairedPolyphase)
+from simplesr_tpu_torch.models.polyphase import (RRDBNetPolyphase, SRResNetPolyphase,
+                                                 fast_inference)
 from simplesr_tpu_torch.models.rrdb import DenseBlock, RRDBBlock, RRDBNet
 from simplesr_tpu_torch.models.srresnet import ResBlock, SRResNet
 from simplesr_tpu_torch.models.vgg import (VGGFeatures, init_vgg_params, load_vgg_weights_npz,
@@ -39,4 +43,6 @@ def build_generator_model(upsample_factor, architecture="srresnet", num_blocks=1
 
 __all__ = ["SRResNet", "ResBlock", "RRDBNet", "RRDBBlock", "DenseBlock", "Discriminator",
            "VGGFeatures", "vgg_layer_names", "load_vgg_weights_npz", "init_vgg_params",
-           "PReLU", "ConvLayer", "SubpixelConvBlock", "build_generator_model"]
+           "PReLU", "ConvLayer", "SubpixelConvBlock", "build_generator_model",
+           "SRResNetPolyphase", "RRDBNetPolyphase", "SRResNetPaired", "SRResNetPairedPolyphase",
+           "RRDBNetPaired", "fast_inference"]

@@ -85,9 +85,14 @@ class RRDBNet(nn.Module):
             raise ValueError(
                 "upsample factor not supported - please choose either 2, 4 or 8")
         self.upsample_factor = upsample_factor
-        self.dtype = dtype
-        self.residual_scaling = residual_scaling
+        self.num_filters = num_filters
         self.num_rrdb_blocks = num_rrdb_blocks
+        self.num_dense_blocks = num_dense_blocks
+        self.num_convs = num_convs
+        self.kernel_size = kernel_size
+        self.residual_scaling = residual_scaling
+        self.dtype = dtype
+        self.growth_channels = growth_channels
         self.remat = remat
         self.Conv_0 = he_conv(3, num_filters, 3)
         for i in range(num_rrdb_blocks):
@@ -116,10 +121,14 @@ class RRDBNet(nn.Module):
         trunk = skip + self.residual_scaling * trunk
         return skip + _conv(self.Conv_1, trunk, self.dtype)
 
-    def forward(self, x):
-        h = self.features(x)
+    def tail(self, h):
+        """Subpixel blocks, HR conv, output conv and tanh of NCHW features;
+        (B, sH, sW, 3) float32."""
         for i in range(self.num_upsample):
             h = F.leaky_relu(getattr(self, f"SubpixelConvBlock_{i}")(h), 0.2)
         h = F.leaky_relu(_conv(self.Conv_2, h, self.dtype), 0.2)
         out = pinned_conv2d(h, self.Conv_3.weight, self.Conv_3.bias, OUTPUT_CONV_TF32)
         return torch.tanh(out).permute(0, 2, 3, 1).contiguous()
+
+    def forward(self, x):
+        return self.tail(self.features(x))

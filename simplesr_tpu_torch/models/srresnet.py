@@ -1,5 +1,6 @@
 """SRResNet generator, as simplesr_tpu.models.srresnet, in its training
-form (the polyphase serving rewrite is not ported).
+form (``models/polyphase.py`` holds the exact serving rewrite of its tail,
+``models/paired.py`` the paired trunk).
 
 9x9 conv (64 f) -> PReLU [skip] -> N residual blocks (conv3 [+BN] -> PReLU ->
 conv3 [+BN] -> add) -> conv3 [+BN] -> global skip add -> log2(scale) subpixel
@@ -65,6 +66,9 @@ class SRResNet(nn.Module):
                 "upsample factor not supported - please choose either 2, 4 or 8")
         self.upsample_factor = upsample_factor
         self.num_filters = num_filters
+        self.num_res_blocks = num_res_blocks
+        self.momentum = momentum
+        self.batch_norm = batch_norm
         self.dtype = dtype
         self.head = ConvLayer(3, num_filters, 9, dtype=dtype)
         self.head_act = PReLU(num_filters)
@@ -119,8 +123,12 @@ class SRResNet(nn.Module):
         h = skip = self.head_act(self.head(h))
         return self.trunk_out(self._trunk(h)) + skip
 
-    def forward(self, x):
-        h = self.features(x)
+    def tail(self, h):
+        """Subpixel blocks, output conv and tanh of NCHW features; (B, sH,
+        sW, 3) float32."""
         for block in self.upsample:
             h = block(h)
         return torch.tanh(output_conv(h, self.out)).permute(0, 2, 3, 1).contiguous()
+
+    def forward(self, x):
+        return self.tail(self.features(x))

@@ -1,20 +1,46 @@
-"""Batched SR serving engine, the in-process part of
-simplesr_tpu.tools.serve: ``SREngine`` keeps one model warm on the device and
-batches concurrent requests by shape. The socket server, its client and the
-command line are not ported yet (ROADMAP.md, Queue 1, tools).
+"""Batched SR serving daemon, as simplesr_tpu.tools.serve: a long-lived
+process that keeps one model warm on the card and serves upscale requests
+over a Unix (or TCP) socket.
 
 Design:
-  * requests are grouped by (shape, dtype) and batched up to ``max_batch``;
-  * a collector thread assembles a batch within a ``max_wait_ms`` deadline,
-    so latency stays bounded and throughput comes from batching;
-  * batch entries are independent through the convs, so a batched request
-    gets what the one-shot ``tools.upscale`` path gives it (up to the
-    convolution library's choice of algorithm per batch size);
+  * ``SREngine`` groups requests by (shape, dtype) and batches them up to
+    ``max_batch``, within a ``max_wait_ms`` deadline: latency stays bounded
+    and throughput comes from batching;
+  * a batch is padded to the next power of two with repeats of its first
+    image, so the set of batch sizes the convolution library plans for stays
+    the ``warmup`` ladder (1, 2, 4, ... up to ``max_batch``); batch entries
+    are independent through the convs, so a request gets what the one-shot
+    ``tools.upscale`` path gives it, up to the library's choice of algorithm
+    per batch size;
+  * the model is served in its exact serving form by default (``fast``, the
+    polyphase tail), optionally with the x8 self-ensemble or the paired
+    trunk;
   * images larger than the tile threshold go one by one through the
     overlap-tiled route, as in offline upscaling.
+
+Protocol (length-prefixed frames over one persistent connection; send any
+number of requests, close to end the session):
+  client -> server: uint64 big-endian length + PNG bytes   (repeat)
+  server -> client: 1 status byte (0 = ok, 1 = error)
+                    + uint64 big-endian length
+                    + payload: PNG bytes (ok) | UTF-8 error message (error)
+A failed request (an undecodable image, a model error) gets status 1 and a
+message; the connection stays usable. Images are decoded and encoded by the
+port's own PNG code: a JPEG body gets status 1 (the port reads no JPEG yet).
+
+Run:    python -m simplesr_tpu_torch.tools.serve --model m.msgpack --scale 4 \\
+            --socket /tmp/sr.sock [--device cpu]
+Client: python -m simplesr_tpu_torch.tools.serve --client /tmp/sr.sock \\
+            in.png --output out/
+Library client: ``with SRClient(addr) as c: c.upscale_file(p)``.
 """
 
+import argparse
+import os
 import queue
+import socket
+import socketserver
+import struct
 import threading
 import time
 
@@ -22,8 +48,72 @@ import numpy as np
 import torch
 
 from simplesr_tpu_torch.core.device import resolve_device
-from simplesr_tpu_torch.eval.evaluation import _as_predictor, _upscale
+from simplesr_tpu_torch.data.png import as_rgb, decode_png, encode_png
+from simplesr_tpu_torch.eval.evaluation import (_as_predictor, _upscale,
+                                                check_tile_threshold)
+from simplesr_tpu_torch.train.sr_model import PARALLEL_ITEM
 
+_LEN = struct.Struct(">Q")
+
+# where JPEG decoding is queued
+JPEG_ITEM = "ROADMAP.md, Queue 1, the native loader (with JPEG decoding)"
+_JPEG_MAGIC = b"\xff\xd8\xff"
+
+
+# --------------------------------------------------------------- wire I/O
+
+def _read_exact(sock, n):
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("peer closed mid-message")
+        buf += chunk
+    return buf
+
+
+def _recv_blob(sock, allow_eof=False):
+    """One length-prefixed blob; with ``allow_eof``, a clean close before
+    the first byte returns None (the end of a persistent session)."""
+    first = sock.recv(1)
+    if not first:
+        if allow_eof:
+            return None
+        raise ConnectionError("peer closed mid-message")
+    (n,) = _LEN.unpack(first + _read_exact(sock, _LEN.size - 1))
+    return _read_exact(sock, n)
+
+
+def _send_blob(sock, data):
+    sock.sendall(_LEN.pack(len(data)) + data)
+
+
+STATUS_OK = b"\x00"
+STATUS_ERROR = b"\x01"
+
+
+def _send_reply(sock, status, payload):
+    sock.sendall(status + _LEN.pack(len(payload)) + payload)
+
+
+def _recv_reply(sock):
+    """-> (ok, payload)."""
+    status = _read_exact(sock, 1)
+    (n,) = _LEN.unpack(_read_exact(sock, _LEN.size))
+    return status == STATUS_OK, _read_exact(sock, n)
+
+
+def decode_image(blob):
+    """Request bytes -> uint8 RGB (H, W, 3). A JPEG raises naming the
+    ROADMAP item that brings JPEG decoding; anything else that is not a PNG
+    the port reads raises ValueError."""
+    if blob[:3] == _JPEG_MAGIC:
+        raise ValueError(f"JPEG input is not decoded by the port yet ({JPEG_ITEM}); "
+                         "send PNG")
+    return as_rgb(decode_png(blob, "request"))
+
+
+# ----------------------------------------------------------------- engine
 
 class _Request:
     __slots__ = ("img", "event", "result", "error")
@@ -37,18 +127,35 @@ class _Request:
         self.error = None
 
 
+def _bucket(n):
+    """The batch size ``n`` requests are padded to: the next power of two."""
+    target = 1
+    while target < n:
+        target *= 2
+    return target
+
+
 class SREngine:
     """Shape-bucketed batching executor around one warm model.
 
     ``upscale`` takes and returns float32, ``upscale_u8`` uint8; the uint8
     route moves 1 byte per channel between host and device and converts on
-    the device. Call ``close`` when done.
+    the device. ``fast``, ``ensemble`` and ``paired`` pick the serving form
+    as ``eval.evaluation._as_predictor`` does. ``tile_threshold`` must be
+    1000, the tiled route's own (``eval.evaluation.check_tile_threshold``).
+    Call ``close`` when done.
     """
 
     def __init__(self, model_path, scale, max_batch=8, max_wait_ms=5,
-                 tile_threshold=1000, device="cuda"):
+                 tile_threshold=1000, fast=True, ensemble=False, paired=0, mesh=None,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                f"serving over a device mesh is not ported yet: {PARALLEL_ITEM}")
+        check_tile_threshold(tile_threshold)
         self.device = resolve_device(device)
-        self._predict = _as_predictor(model_path, device=self.device)
+        self._predict = _as_predictor(model_path, fast=fast, ensemble=ensemble, paired=paired,
+                                      device=self.device)
         self.scale = int(scale)
         self.max_batch = max(int(max_batch), 1)
         self.max_wait_s = max_wait_ms / 1000.0
@@ -76,6 +183,27 @@ class SREngine:
         if req.error is not None:
             raise req.error
         return req.result
+
+    def batch_sizes(self):
+        """The batch sizes ``_run`` can give the model: powers of two up to
+        the first at or above ``max_batch``."""
+        return [1 << i for i in range(_bucket(self.max_batch).bit_length())]
+
+    def warmup(self, shapes=((64, 64), (128, 128)), u8=None):
+        """Run every batch size of ``batch_sizes`` once for each LR (H, W)
+        shape, so that the convolution library has planned each before a
+        request comes; ``u8=None`` warms both request dtypes. Returns the
+        (batch, H, W, dtype) buckets run."""
+        dtypes = [np.uint8, np.float32] if u8 is None else [np.uint8 if u8 else np.float32]
+        warmed = []
+        for h, w in shapes:
+            for n in self.batch_sizes():
+                for dtype in dtypes:
+                    self._forward(np.zeros((n, h, w, 3), dtype))
+                    warmed.append((n, h, w, np.dtype(dtype).name))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return warmed
 
     def close(self, timeout=10.0):
         """Stop the worker; returns whether it has ended within ``timeout``."""
@@ -109,7 +237,14 @@ class SREngine:
                 stragglers.append(req)  # another bucket: next round
         return batch, stragglers
 
-    def _to_output(self, sr, u8):
+    def _forward(self, stacked):
+        """The model on a host batch (float32 [0, 1] or uint8), converted on
+        the device; the host result in the batch's dtype."""
+        u8 = stacked.dtype == np.uint8
+        x = torch.from_numpy(stacked).to(self.device)
+        if u8:
+            x = x.float() / 255.0
+        sr = self._predict(x)
         if u8:  # truncating cast, as the one-shot path quantises
             sr = torch.clamp((sr.float() + 1.0) * 127.5, 0.0, 255.0).to(torch.uint8)
         return sr.cpu().numpy()
@@ -124,16 +259,22 @@ class SREngine:
             try:
                 h, w = batch[0].img.shape[:2]
                 u8 = batch[0].img.dtype == np.uint8
-                x = torch.from_numpy(np.stack([r.img for r in batch])).to(self.device)
-                if u8:
-                    x = x.float() / 255.0
                 if min(h, w) > self.tile_threshold:
                     # the tiled route is per image; keep requests independent
-                    outs = [self._to_output(_upscale(self._predict, img[None],
-                                                     self.scale)[0], u8)
-                            for img in x]
+                    outs = []
+                    for r in batch:
+                        img = torch.from_numpy(r.img).to(self.device)
+                        img = img.float() / 255.0 if u8 else img
+                        sr = _upscale(self._predict, img[None], self.scale)[0]
+                        if u8:
+                            sr = torch.clamp((sr + 1.0) * 127.5, 0.0, 255.0).to(torch.uint8)
+                        outs.append(sr.cpu().numpy())
                 else:
-                    outs = self._to_output(self._predict(x), u8)
+                    stacked = np.stack([r.img for r in batch])
+                    pad = _bucket(len(batch)) - len(batch)
+                    if pad:
+                        stacked = np.concatenate([stacked, np.repeat(stacked[:1], pad, 0)])
+                    outs = self._forward(stacked)[:len(batch)]
                 for req, out in zip(batch, outs):
                     req.result = out
             except Exception as e:  # report to the callers, keep serving
@@ -142,3 +283,221 @@ class SREngine:
             finally:
                 for req in batch:
                     req.event.set()
+
+
+# ----------------------------------------------------------------- server
+
+def serve(model_path, scale, socket_path=None, tcp_port=None, max_batch=8, max_wait_ms=5,
+          ready_event=None, stop_event=None, warm_shapes=None, mesh=None, ensemble=False,
+          paired=0, device="cuda"):
+    """Run the daemon until ``stop_event`` is set (or forever). ``warm_shapes``
+    (e.g. ((128, 128),)) runs those LR buckets in uint8, the dtype the socket
+    serves, before readiness is signalled; ``ensemble`` and ``paired`` pick
+    the serving form as ``SREngine`` does. Returns the server object."""
+    engine = SREngine(model_path, scale, max_batch=max_batch, max_wait_ms=max_wait_ms,
+                      ensemble=ensemble, paired=paired, mesh=mesh, device=device)
+    try:
+        if warm_shapes:
+            engine.warmup(shapes=warm_shapes, u8=True)
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                # a persistent session: serve requests until the client closes
+                while True:
+                    try:
+                        blob = _recv_blob(self.request, allow_eof=True)
+                    except (ConnectionError, OSError):
+                        return
+                    if blob is None:
+                        return  # clean close
+                    try:
+                        reply = (STATUS_OK, encode_png(engine.upscale_u8(decode_image(blob))))
+                    except Exception as e:  # report why; keep the session alive
+                        reply = (STATUS_ERROR,
+                                 f"{type(e).__name__}: {e}".encode("utf-8", "replace")[:4096])
+                    try:
+                        _send_reply(self.request, *reply)
+                    except OSError:
+                        return
+
+        if socket_path:
+            if os.path.exists(socket_path):
+                os.unlink(socket_path)
+            server = _ThreadingUnixServer(socket_path, Handler)
+        else:
+            server = _ThreadingTCPServer(("127.0.0.1", tcp_port or 0), Handler)
+    except BaseException:
+        engine.close()
+        raise
+    if ready_event is not None:
+        ready_event.set()
+    try:
+        if stop_event is None:
+            server.serve_forever()
+        else:
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            stop_event.wait()
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.close()
+        if socket_path and os.path.exists(socket_path):
+            os.unlink(socket_path)
+    return server
+
+
+class _ThreadingUnixServer(socketserver.ThreadingMixIn, socketserver.UnixStreamServer):
+    daemon_threads = True
+
+
+class _ThreadingTCPServer(socketserver.ThreadingMixIn, socketserver.TCPServer):
+    daemon_threads = True
+    allow_reuse_address = True
+
+
+class SRError(RuntimeError):
+    """A failure the server reported for one request (its message)."""
+
+
+class SRClient:
+    """Persistent-connection client: one socket, many requests.
+
+    ``address`` is a Unix socket path or a (host, port) tuple. A request the
+    server fails raises SRError with the server's message; the connection
+    stays open for further requests."""
+
+    def __init__(self, address):
+        if isinstance(address, tuple):
+            self._sock = socket.create_connection(address)
+        else:
+            self._sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            try:
+                self._sock.connect(address)
+            except OSError:
+                self._sock.close()
+                raise
+
+    def upscale_bytes(self, img_bytes):
+        """PNG bytes -> SR image as uint8 RGB (H, W, 3)."""
+        _send_blob(self._sock, img_bytes)
+        ok, payload = _recv_reply(self._sock)
+        if not ok:
+            raise SRError(payload.decode("utf-8", "replace")
+                          or "server reported an error for this image")
+        return as_rgb(decode_png(payload, "reply"))
+
+    def upscale_file(self, image_path):
+        with open(image_path, "rb") as f:
+            return self.upscale_bytes(f.read())
+
+    def close(self):
+        self._sock.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def request_upscale(address, image_path):
+    """One image file through a new connection; the SR image as uint8 RGB.
+    For many images hold an SRClient open instead."""
+    with SRClient(address) as client:
+        return client.upscale_file(image_path)
+
+
+def parse_warm(parser, spec):
+    """``--warm HxW[,HxW...]`` -> ((H, W), ...); a bad entry is a parser
+    error."""
+    if not spec:
+        return None
+    warm = []
+    for s in spec.split(","):
+        dims = s.split("x")
+        if len(dims) != 2 or not all(d.isdigit() and int(d) > 0 for d in dims):
+            parser.error(f"--warm entries must be HxW (two positive ints), got {s!r}")
+        warm.append((int(dims[0]), int(dims[1])))
+    return tuple(warm)
+
+
+def main(argv=None):
+    from simplesr_tpu_torch.data.png import write_png
+
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", help="saved model (.msgpack) or zoo:<name> [server mode]")
+    p.add_argument("--scale", type=int, default=4)
+    p.add_argument("--socket", help="Unix socket path")
+    p.add_argument("--port", type=int, help="TCP port (instead of --socket)")
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-wait-ms", type=float, default=5)
+    p.add_argument("--warm", metavar="HxW[,HxW...]",
+                   help="run these LR shape buckets before serving (e.g. 128x128,256x256)")
+    p.add_argument("--mesh-dp", type=int, metavar="N",
+                   help="shard request batches over N devices (not ported yet)")
+    p.add_argument("--ensemble", action="store_true",
+                   help="serve through the x8 geometric self-ensemble (~8x the compute)")
+    p.add_argument("--paired", type=int, default=0, metavar="W",
+                   help="serve through the paired trunk (W batch items packed into "
+                        "channels; exact rewrite, SRResNet/RRDB)")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    p.add_argument("--client", metavar="ADDR", help="client mode: socket path (or host:port)")
+    p.add_argument("--output", default=".", help="[client] output directory")
+    p.add_argument("inputs", nargs="*", help="[client] PNG files")
+    args = p.parse_args(argv)
+
+    if args.client:
+        addr = args.client
+        if ":" in addr and not os.path.exists(addr):
+            host, port = addr.rsplit(":", 1)
+            addr = (host, int(port))
+        os.makedirs(args.output, exist_ok=True)
+        rc = 0
+        with SRClient(addr) as client:  # one connection for the whole list
+            for path in args.inputs:
+                try:
+                    arr = client.upscale_file(path)
+                except SRError as e:
+                    print(f"{path}: server error: {e}")
+                    rc = 1
+                    continue
+                out = os.path.join(args.output,
+                                   os.path.splitext(os.path.basename(path))[0] + "_sr.png")
+                write_png(out, arr)
+                print(f"{path} -> {out} {arr.shape[1]}x{arr.shape[0]}")
+        return rc
+
+    if not args.model or not (args.socket or args.port):
+        p.error("server mode needs --model and --socket/--port")
+    warm = parse_warm(p, args.warm)
+    if args.mesh_dp is not None:
+        p.error(f"--mesh-dp: multi-device serving is not ported yet ({PARALLEL_ITEM})")
+    if args.paired and args.paired < 2:
+        p.error(f"--paired must be >= 2, got {args.paired}")
+    device = resolve_device(args.device)
+    print(f"serving {args.model} x{args.scale} on "
+          f"{args.socket or f'127.0.0.1:{args.port}'} ({device})", flush=True)
+    # SIGTERM (systemd, docker stop) runs the same clean-up as Ctrl-C:
+    # the socket is unlinked and the engine closed
+    stop = _install_stop_handler()
+    serve(args.model, args.scale, socket_path=args.socket, tcp_port=args.port,
+          max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, warm_shapes=warm,
+          ensemble=args.ensemble, paired=args.paired, device=device, stop_event=stop)
+    return 0
+
+
+def _install_stop_handler():
+    """SIGTERM / SIGINT -> a stop event the serve loop waits on (shared by
+    the HTTP gateway)."""
+    import signal
+
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    return stop
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,13 +1,14 @@
 """Single-command upscaler: one model file, PNG images in, SR PNGs out.
 
-    python -m simplesr_tpu_torch.tools.upscale \
-        --model results/quality_fastrecipe/models/resnet_gen_srresnet_x4_best.msgpack \
+    python -m simplesr_tpu_torch.tools.upscale \\
+        --model results/quality_fastrecipe/models/resnet_gen_srresnet_x4_best.msgpack \\
         --scale 4 --output out_dir input1.png input2.png ...
 
-Runs on the GPU unless ``--device cpu``. LR images over 1000 x 1000 go
-through the overlap-tiled route, with the CUDA patch-extraction kernel.
-The model is served in its training form (the polyphase rewrite, the
-self-ensemble and the paired trunk are not ported yet).
+Runs on the GPU unless ``--device cpu``. The model is served in its exact
+serving form (the polyphase tail for SRResNet) unless ``--no-fast``;
+``--ensemble`` adds the x8 geometric self-ensemble and ``--paired W`` the
+paired trunk. LR images over 1000 x 1000 go through the overlap-tiled
+route, with the CUDA patch-extraction kernel.
 """
 
 import argparse
@@ -19,14 +20,20 @@ import torch
 
 from simplesr_tpu_torch.core.device import resolve_device
 from simplesr_tpu_torch.data.png import read_img, write_png
-from simplesr_tpu_torch.eval.evaluation import _as_predictor, _upscale
+from simplesr_tpu_torch.eval.evaluation import (_as_predictor, _upscale,
+                                                check_tile_threshold)
 
 
-def upscale_files(model_path, inputs, output_dir, scale, device="cuda"):
+def upscale_files(model_path, inputs, output_dir, scale, tile_threshold=1000, fast=True,
+                  ensemble=False, paired=0, device="cuda"):
     """Upscale PNG files into ``output_dir`` as ``<name>_x<scale>.png``;
-    return the output paths."""
+    return the output paths. ``tile_threshold`` is kept for the JAX
+    package's signature: the route tiles LR images over 1000 x 1000, as
+    there, and any other value raises ValueError."""
+    check_tile_threshold(tile_threshold)
     device = resolve_device(device)
-    predict = _as_predictor(model_path, device=device)
+    predict = _as_predictor(model_path, fast=fast, ensemble=ensemble, paired=paired,
+                            device=device)
     os.makedirs(output_dir, exist_ok=True)
     outputs = []
     for path in inputs:
@@ -49,13 +56,23 @@ def upscale_files(model_path, inputs, output_dir, scale, device="cuda"):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", required=True, help="saved model (.msgpack)")
+    p.add_argument("--model", required=True, help="saved model (.msgpack) or zoo:<name>")
     p.add_argument("--scale", type=int, default=4, help="model upsample factor")
     p.add_argument("--output", default=".", help="output directory")
+    p.add_argument("--no-fast", action="store_true",
+                   help="serve the training-form module (skip the exact polyphase tail)")
+    p.add_argument("--ensemble", action="store_true",
+                   help="x8 geometric self-ensemble (rotations and flips averaged), "
+                        "~8x the compute")
+    p.add_argument("--paired", type=int, default=0, metavar="W",
+                   help="paired trunk (W batch items packed into channels; exact rewrite)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     p.add_argument("inputs", nargs="+", help="input PNG files")
     args = p.parse_args(argv)
-    upscale_files(args.model, args.inputs, args.output, args.scale, device=args.device)
+    if args.paired and args.paired < 2:
+        p.error(f"--paired must be >= 2, got {args.paired}")
+    upscale_files(args.model, args.inputs, args.output, args.scale, fast=not args.no_fast,
+                  ensemble=args.ensemble, paired=args.paired, device=args.device)
     return 0
 
 

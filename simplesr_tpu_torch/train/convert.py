@@ -4,9 +4,11 @@ modules.
 A ``state_dict`` key names its flax variable: each dotted part is a flax
 module name, after the aliases below for the SRResNet's and the blocks'
 own names (``blocks.3.conv2.conv.weight`` is ``ResBlock_3/ConvLayer_1/
-Conv_0/kernel``). The RRDB generator, the discriminator and VGG name their
-modules as flax does (``RRDBBlock_0.DenseBlock_1.Conv_2``, ``Dense_0``,
-``block5_conv4``). Conv kernels go HWIO <-> OIHW and Dense kernels
+Conv_0/kernel``). The RRDB generator, the discriminator, VGG and the serving
+forms' tails name their modules as flax does (``RRDBBlock_0.DenseBlock_1.
+Conv_2``, ``Dense_0``, ``block5_conv4``, ``PolyUp_2``, ``PolyPReLU_1``,
+``PolyOut``, ``PolyHr``), and the paired forms keep the trained model's
+names at the wider shapes. Conv kernels go HWIO <-> OIHW and Dense kernels
 (in, out) <-> (out, in); BatchNorm's scale / bias / mean / var are weight /
 bias / running_mean / running_var. ``to_flax_variables`` writes every map's
 keys in sorted order (``batch_stats`` before ``params``), as

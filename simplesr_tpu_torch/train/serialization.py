@@ -4,8 +4,8 @@ packages read and write.
 A model file is one msgpack map ``{"config": json, "variables": bytes}``,
 where the variables are flax's msgpack encoding of the
 ``{"params": ..., "batch_stats": ...}`` tree. ``save_model`` writes the
-bytes that flax writes for the same tree. ``zoo:`` specs are not ported yet
-(ROADMAP.md, Queue 1).
+bytes that flax writes for the same tree. A path may be a ``zoo:<name>``
+spec, the committed zoo model of that name (``simplesr_tpu_torch.zoo``).
 """
 
 import json
@@ -27,13 +27,20 @@ def save_model(module_config, variables, path):
         f.write(packb(payload))
 
 
-def load_payload(path):
-    """Read a model file -> (config dict, variables tree of arrays)."""
+def resolve_model_spec(path):
+    """``zoo:<name>`` -> the committed zoo model's file path; any other path
+    as it is."""
     path = str(path)
     if path.startswith("zoo:"):
-        raise NotImplementedError(
-            "zoo: model specs are not ported yet: ROADMAP.md, Queue 1, tools")
-    with open(path, "rb") as f:
+        from simplesr_tpu_torch import zoo
+        return zoo.resolve(path[len("zoo:"):]).path
+    return path
+
+
+def load_payload(path):
+    """Read a model file (or a ``zoo:`` spec) -> (config dict, variables
+    tree of arrays)."""
+    with open(resolve_model_spec(path), "rb") as f:
         payload = unpackb(f.read())
     config = json.loads(payload["config"])
     variables = unpackb(payload["variables"])

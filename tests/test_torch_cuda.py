@@ -7,6 +7,7 @@ imports no JAX, so it runs on a machine without it:
 """
 
 import ctypes
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +24,9 @@ from simplesr_tpu_torch.ops.kernels import (
 )
 
 pytestmark = pytest.mark.cuda
+
+_FLAGSHIP = (Path(__file__).resolve().parents[1]
+             / "results/quality_fastrecipe/models/resnet_gen_srresnet_x4_best.msgpack")
 
 
 @pytest.fixture
@@ -393,3 +397,58 @@ def test_gan_step_on_cuda_matches_cpu(cuda, monkeypatch):
         want = copy.deepcopy(part(cpu).state_dict())
         for k, v in part(card).state_dict().items():
             assert (v.cpu().float() - want[k].float()).abs().max().item() < 1e-4, k
+
+
+@pytest.mark.parametrize("option", [{}, {"fast": False}, {"ensemble": True}, {"paired": 2},
+                                    {"paired": 2, "fast": False}])
+def test_serving_forms_on_cuda_match_cpu(cuda, tmp_path, option):
+    """The predictor's serving forms of a BN-free bf16 SRResNet of 64
+    filters on the card against the CPU: the trunk kernel on the polyphase
+    form and the training form (one launch a call, two under the ensemble),
+    none on the paired trunk (128 wide)."""
+    from simplesr_tpu_torch.eval.evaluation import _as_predictor
+    from simplesr_tpu_torch.models import build_generator_model
+    from simplesr_tpu_torch.train import save_model, to_flax_variables
+
+    torch.manual_seed(0)
+    cpu = build_generator_model(4, num_blocks=2, num_filters=64, batch_norm=False,
+                                dtype="bfloat16", device="cpu")
+    with torch.no_grad():
+        for block in cpu.blocks:
+            block.act.alpha.uniform_(0, 0.3)
+    path = tmp_path / "m.msgpack"
+    save_model({"upsample_factor": 4, "architecture": "srresnet", "num_blocks": 2,
+                "num_filters": 64, "batch_norm": False, "dtype": "bfloat16"},
+               to_flax_variables(cpu.state_dict()), path)
+    x = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, (3, 20, 28, 3))
+                         .astype(np.float32))
+    before = residual_trunk.launches
+    got = _as_predictor(path, device=cuda, **option)(x.to(cuda)).cpu()
+    launches = residual_trunk.launches - before
+    ref = _as_predictor(path, device="cpu", **option)(x)
+    assert launches == (0 if option.get("paired") else 2 if option.get("ensemble") else 1)
+    assert (got - ref).abs().max().item() < 5e-2  # bf16 convolutions of two libraries
+
+
+def test_daemon_on_cuda_answers_a_request(cuda, tmp_path, monkeypatch):
+    import threading
+
+    from simplesr_tpu_torch.data.png import encode_png
+    from simplesr_tpu_torch.tools import serve
+
+    monkeypatch.chdir(tmp_path)  # a short, relative socket path
+    ready, stop = threading.Event(), threading.Event()
+    thread = threading.Thread(target=serve.serve, daemon=True, args=(str(_FLAGSHIP), 4),
+                              kwargs=dict(socket_path="sr.sock", ready_event=ready,
+                                          stop_event=stop, device=cuda))
+    thread.start()
+    try:
+        assert ready.wait(120)
+        img = np.random.default_rng(0).integers(0, 256, (24, 20, 3), dtype=np.uint8)
+        with serve.SRClient("sr.sock") as client:
+            out = client.upscale_bytes(encode_png(img))
+        assert out.shape == (96, 80, 3) and out.dtype == np.uint8
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive()

@@ -1,6 +1,7 @@
 """The port's serving slice on the CPU against simplesr_tpu: the upscale
-tool, the overlap-tiled route and SREngine; its PNG codec against PIL; and
-the rules the port keeps (no JAX-side imports, no silent move to the CPU)."""
+tool, the overlap-tiled route, the predictor's serving forms and SREngine;
+its PNG codec against PIL; and the rules the port keeps (no JAX-side
+imports, no silent move to the CPU)."""
 
 import ast
 import os
@@ -18,6 +19,7 @@ import torch
 from PIL import Image
 
 from simplesr_tpu.eval.evaluation import _upscale as jax_upscale
+from simplesr_tpu.models.polyphase import fast_inference as jax_fast_inference
 from simplesr_tpu.train.generator import Generator
 from simplesr_tpu.train.serialization import load_model as jax_load_model
 from simplesr_tpu.train.serialization import save_model as jax_save_model
@@ -43,9 +45,14 @@ def small_model(tmp_path_factory):
     return path
 
 
-def _jax_predictor(path):
+def _jax_predictor(path, fast=False):
+    """The JAX package's predictor of a model file, eager: its training form,
+    or with ``fast`` its serving form (what its ``_as_predictor`` serves by
+    default)."""
     module, variables = jax_load_model(path)
-    return lambda x: module.apply(variables, x, train=False)  # eager
+    if fast:
+        module, variables = jax_fast_inference(module, variables)
+    return lambda x: module.apply(variables, x, train=False)
 
 
 def test_upscale_files_matches_jax_upscale(tmp_path):
@@ -55,7 +62,8 @@ def test_upscale_files_matches_jax_upscale(tmp_path):
     out = upscale_files(FLAGSHIP, [src], tmp_path / "out", 4, device="cpu")
     got = read_png(out[0]).astype(np.int16)
     lr = jnp.asarray(crop.astype(np.float32) / 255.0)[None]
-    sr = np.asarray(jax_upscale(_jax_predictor(FLAGSHIP), lr, 4)[0])
+    # both packages' defaults: the polyphase serving form
+    sr = np.asarray(jax_upscale(_jax_predictor(FLAGSHIP, fast=True), lr, 4)[0])
     ref = np.clip((sr + 1.0) * 127.5, 0, 255).astype(np.uint8).astype(np.int16)
     assert got.shape == ref.shape == (96, 128, 3)
     diff = np.abs(got - ref)
@@ -70,6 +78,12 @@ def test_cli_writes_pngs(tmp_path, small_model):
     assert upscale_main(["--model", small_model, "--scale", "2", "--device", "cpu",
                          "--output", str(tmp_path / "o"), str(src)]) == 0
     assert read_png(tmp_path / "o" / "in_x2.png").shape == (40, 56, 3)
+    for flags in (["--no-fast"], ["--ensemble"], ["--paired", "2"]):
+        assert upscale_main(["--model", small_model, "--scale", "2", "--device", "cpu",
+                             "--output", str(tmp_path / flags[0]), str(src), *flags]) == 0
+        assert read_png(tmp_path / flags[0] / "in_x2.png").shape == (40, 56, 3)
+    with pytest.raises(SystemExit):  # as the JAX package's: --paired must be >= 2
+        upscale_main(["--model", small_model, "--paired", "1", "--device", "cpu", str(src)])
 
 
 def test_tiled_route_matches_jax(small_model):
@@ -84,17 +98,26 @@ def test_tiled_route_matches_jax(small_model):
 
 
 def test_predictor_forms_and_unported_options(small_model):
+    """Every form builds, and each serving option (ported since) matches its
+    reference: the polyphase form the training form, the ensemble the mean
+    of the dihedral outputs, the paired trunk the unpaired one; float32, the
+    same products summed in another order."""
+    from simplesr_tpu_torch.ops.ensemble import self_ensemble
     from simplesr_tpu_torch.train.serialization import load_model
 
-    x = torch.rand((1, 8, 8, 3))
+    x = torch.rand((3, 8, 8, 3))
     module = load_model(small_model, device="cpu")
     by_path = _as_predictor(small_model, device="cpu")(x)
     by_pair = _as_predictor((module, module.state_dict()), device="cpu")(x)
     assert torch.equal(by_path, by_pair)
     assert _as_predictor(torch.tanh)(x) is not None
-    for option in ({"fast": True}, {"ensemble": True}, {"paired": 2}):
-        with pytest.raises(NotImplementedError):
-            _as_predictor(small_model, device="cpu", **option)
+    training_form = _as_predictor(small_model, fast=False, device="cpu")
+    references = {"fast": training_form(x), "ensemble": self_ensemble(training_form, x),
+                  "paired": training_form(x)}
+    for option, value in (("fast", True), ("ensemble", True), ("paired", 2)):
+        got = _as_predictor(small_model, device="cpu", **{option: value})(x)
+        assert got.shape == (3, 16, 16, 3)
+        torch.testing.assert_close(got, references[option], rtol=0, atol=1e-5)
     with pytest.raises(TypeError):
         _as_predictor(3, device="cpu")
 
@@ -102,7 +125,8 @@ def test_predictor_forms_and_unported_options(small_model):
 def test_predictor_of_a_trained_model_ignores_fast(small_model):
     """An SRModel or a Generator serves its ``generate`` whatever ``fast``
     says, as the JAX package's ``_as_predictor`` does; ``fast=True`` on a
-    path or a (module, state_dict) pair still names the polyphase rewrite."""
+    path or a (module, state_dict) pair serves the polyphase form, as the
+    JAX package's does."""
     from simplesr_tpu_torch.train import Generator as TorchGenerator
     from simplesr_tpu_torch.train import SRModel
     from simplesr_tpu_torch.train.serialization import load_model
@@ -115,9 +139,12 @@ def test_predictor_of_a_trained_model_ignores_fast(small_model):
         assert torch.equal(_as_predictor(model, fast=fast, device="cpu")(x), model.generate(x))
         assert torch.equal(_as_predictor(gen, fast=fast, device="cpu")(x), gen.generate(x))
     module = load_model(small_model, device="cpu")
+    jax_fast = _jax_predictor(small_model, fast=True)(jnp.asarray(x.numpy()))
     for form in (small_model, (module, module.state_dict())):
-        with pytest.raises(NotImplementedError, match="polyphase"):
-            _as_predictor(form, fast=True, device="cpu")
+        got = _as_predictor(form, fast=True, device="cpu")(x)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jax_fast), rtol=0, atol=1e-5)
+        torch.testing.assert_close(got, _as_predictor(form, fast=False, device="cpu")(x),
+                                   rtol=0, atol=1e-5)
 
 
 def test_engine_batches_and_matches_one_shot(small_model):
@@ -257,16 +284,21 @@ def _imports(path):
             yield node.module
 
 
-# the GAN family's modules, each held to the rule like every other file
+# the GAN family's and the serving surface's modules, each held to the rule
+# like every other file
 GAN_MODULES = ["models/rrdb.py", "models/discriminator.py", "models/vgg.py",
                "losses/adversarial.py", "losses/vgg_loss.py", "losses/learned_perceptual.py",
                "train/discriminator.py"]
+SERVING_MODULES = ["ops/polyphase.py", "models/polyphase.py", "ops/ensemble.py",
+                   "ops/pairing.py", "models/paired.py", "eval/evaluation.py",
+                   "tools/run_example.py", "tools/upscale.py", "tools/serve.py",
+                   "tools/http_gateway.py", "zoo.py", "tools/interpolate.py", "data/png.py"]
 
 
 def test_port_imports_only_torch_numpy_and_stdlib():
     files = sorted((ROOT / "simplesr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
-    assert {ROOT / "simplesr_tpu_torch" / m for m in GAN_MODULES} <= set(files)
+    assert {ROOT / "simplesr_tpu_torch" / m for m in GAN_MODULES + SERVING_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
@@ -277,13 +309,20 @@ def test_port_imports_only_torch_numpy_and_stdlib():
 @pytest.mark.parametrize("entry", ["upscale_files", "engine", "load_model", "build",
                                    "data_pipeline", "config_from_yaml", "train_tool",
                                    "run_training", "build_rrdb", "discriminator",
-                                   "esrgan_generator", "gan_yaml"])
+                                   "esrgan_generator", "gan_yaml", "serve", "serve_http",
+                                   "zoo_load", "run_example", "evaluate_on_testdata",
+                                   "engine_fast", "engine_ensemble"])
 def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from simplesr_tpu_torch import zoo
     from simplesr_tpu_torch.config import ConfigUtil, _yaml
     from simplesr_tpu_torch.data import DataPipeline
+    from simplesr_tpu_torch.eval.evaluation import evaluate_on_testdata
     from simplesr_tpu_torch.models import build_generator_model
+    from simplesr_tpu_torch.tools.http_gateway import serve_http
+    from simplesr_tpu_torch.tools.run_example import main as run_example_main
+    from simplesr_tpu_torch.tools.serve import serve
     from simplesr_tpu_torch.tools.train import main as train_main
     from simplesr_tpu_torch.train import Discriminator, Generator, run_training
     from simplesr_tpu_torch.train.serialization import load_model
@@ -310,10 +349,25 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
              "build_rrdb": lambda: build_generator_model(4, architecture="rrdb"),
              "discriminator": lambda: Discriminator.initialize_relativistic(),
              "esrgan_generator": lambda: Generator.esrgan_generator(4, num_blocks=1),
-             "gan_yaml": lambda: train_main([str(gan_path)])}
+             "gan_yaml": lambda: train_main([str(gan_path)]),
+             "serve": lambda: serve(small_model, 2, socket_path=str(tmp_path / "sr.sock")),
+             "serve_http": lambda: serve_http(small_model, 2, 0),
+             "zoo_load": lambda: zoo.load("srresnet_x4"),
+             "run_example": lambda: run_example_main([str(inference_path)]),
+             "evaluate_on_testdata": lambda: evaluate_on_testdata(ConfigUtil.evaluation_config(
+                 str(GALLERY[0].parent), None, [small_model], str(tmp_path / "results"),
+                 operation="inference", create_save_dirs=False)),
+             "engine_fast": lambda: SREngine(small_model, 2, fast=True),
+             "engine_ensemble": lambda: SREngine(small_model, 2, ensemble=True)}
+    inference = {"general": {"operation": "inference", "data_paths": str(GALLERY[0].parent),
+                             "test_originals_path": None, "model_paths": [small_model],
+                             "results_save_path": str(tmp_path / "results"), "scale": 2}}
+    inference_path = tmp_path / "inference.yaml"
+    inference_path.write_text(_yaml.dump(inference))
     with pytest.raises(RuntimeError, match='device="cpu"'):
         calls[entry]()
     assert not (tmp_path / "results").exists() or entry == "run_training"
+    assert not (tmp_path / "sr.sock").exists()
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
