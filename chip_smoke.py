@@ -55,7 +55,7 @@ plain PyTorch version, in one process, with no arguments:
      (examples/training/srresnet_x4_paired_production.yaml), read by the
      port's YAML reader and written with these cuts, each printed in
      ``reduced``: the gallery PNGs as data, a temporary results directory,
-     2 epochs, seed 0, and no ``paired_train``; run in-process through
+     2 epochs, seed 0 (``paired_train: 2`` kept); run in-process through
      ``tools.train.main`` (ConfigUtil.from_yaml, DataPipeline, SRModel.init,
      run_training), with the launch counts set to 0 just before and read
      just after. Checks: exit 0; the save-dir tree and file names of the
@@ -147,6 +147,26 @@ plain PyTorch version, in one process, with no arguments:
      name ``srresnet_x4``, resolved to ZOO_SRRESNET_X4, and the
      network interpolation of INTERP_PAIR at alpha 0.5 served, alpha 0
      bit-equal to the PSNR file. Each cut is printed in ``reduced``.
+ 12. the training surface: (a) the production generator at full width (16
+     blocks, 64 filters, BN-free, bf16, batch 16 of 96 x 96 gallery crops)
+     in the paired mode (``paired_ways=2``), which trains the standard
+     layout through the trunk kernel: a batch of 15 trimmed to 14 (one
+     launch), a batch of 1 skipped (none); ``train_step`` (10 warm-up, 20
+     timed, CUDA events) with each step's trunk launches (30 in 30 steps),
+     peak memory, and a ``torch.profiler`` trace of 3 steps, run last;
+     (b) the production recipe as written (``paired_train: 2``) under
+     ``tools.supervise`` with the gallery, 2 epochs, seed 0 and a temporary
+     results directory, its first child SIGKILLed once epoch 1's resume
+     point exists: restarted with ``--resume``, exit 0, one run directory,
+     ``completed_epochs == 2``, its ``_best`` file served on a gallery crop
+     (one trunk launch); (c) the distillation recipe for 1 epoch with the
+     gallery, seed 0 and the 8 RRDB x 64 teacher RRDB_SERVED in place of
+     the one the chip copy leaves out: finite distillation terms in the
+     training and validation histories, a frozen teacher, one trunk launch
+     per student call, and the step against the same step without the
+     teacher (alternating, medians of 20); (d) the native loader is not
+     ported (the GPU machine has no libpng or libjpeg headers), which the
+     phase prints.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -205,8 +225,8 @@ TRUNK_REL_TOL = 1e-2
 # float64 sums, up to this factor on the relative Frobenius error:
 TRUNK_CHAIN_FRO_RATIO = 1.5
 # Phase 7: the production recipe (examples/training/srresnet_x4_paired_production.yaml)
-# at its batch of 16 crops of 96 x 96; its paired_train: 2 packs two batch
-# items into channels for the TPU's 128-lane matrix unit and is not ported.
+# at its batch of 16 crops of 96 x 96. Its paired_train: 2 trains this same
+# forward in the port (phase 12 (a) runs it).
 TRAIN_BATCH = 16
 TRAIN_HR = 96
 TRAIN_STEPS = 30
@@ -555,8 +575,8 @@ def train_phase(dev, work, gen, launches_by_path, card):
     from simplesr_tpu_torch.train import Generator, SRModel, load_model
 
     start("7 training: SRModel, production recipe at full width")
-    print("reduced: paired_train: 2 of the recipe (TPU channel packing) is not ported; "
-          "the batch runs unpacked", flush=True)
+    print("reduced: paired_train: 2 of the recipe -> not set here; the port trains it on "
+          "this same forward, and phase 12 (a) runs it", flush=True)
     images = [torch.from_numpy(read_png(p)).to(dev)
               for p in sorted((ROOT / "data/corpus/gallery").glob("*.png"))]
     batches = training_batches(gen, images, 2 * TRAIN_STEPS + 1)
@@ -856,14 +876,12 @@ def yaml_phase(dev, work, launches_by_path, card):
                                    "(16 PNGs; the recipe's DIV2K is not in the repo)",
                "results_save_path": "a temporary directory",
                "num_epochs": f"{spec['general']['num_epochs']} -> {YAML_EPOCHS}",
-               "random_seed": "unset -> 0",
-               "paired_train": f"{spec['general'].pop('paired_train')} -> removed (the TPU's "
-                               "packed layout is not ported; it is exact, so the loss and "
-                               "gradients are those of the unpaired layout)"}
+               "random_seed": "unset -> 0"}
     spec["general"].update(train_data_paths=str(gallery), num_epochs=YAML_EPOCHS,
                            random_seed=0, results_save_path=str(work / "yaml_run"))
     kept = {k: spec["general"][k] for k in ("batch_size", "crop_size", "num_crops",
-                                            "augmentations", "train_val_split", "scale")}
+                                            "augmentations", "train_val_split", "scale",
+                                            "paired_train")}
     log(8, recipe=str(RECIPE.relative_to(ROOT)), reduced=reduced, kept=kept,
         generator=spec["model"]["generator"], optimizer=spec["model"]["generator_optimizer"],
         optimizer_config=spec["model"]["generator_optimizer_config"])
@@ -1262,7 +1280,7 @@ def srgan_trunk_check(model, batches):
         try:
             module.train()
             sr = module(lr).float()
-            sr_in, d_loss, g_loss, _, _ = model._gan_losses(sr, hr)
+            sr_in, d_loss, g_loss, _, _ = model._gan_losses(sr, hr, lr)
             d_grads = torch.autograd.grad(d_loss, model._d_params, retain_graph=True)
             direct, through_d = torch.autograd.grad(g_loss, [sr, sr_in])
         finally:
@@ -2016,6 +2034,277 @@ def serving_phase(dev, work, launches_by_path, card, tiled_png, tiled_lr, galler
     log(11, phase_s=time.perf_counter() - t_phase)
 
 
+# Phase 12, the training surface. The production recipe's paired mode
+# (paired_train: 2) trains the standard layout through the trunk kernel, the
+# same function as the JAX package's packed layout (tests/test_torch_paired_train.py
+# holds the two to 1e-5 on the CPU); its own parts are the JAX package's
+# trimming of a train batch to a multiple of the ways and skipping of one
+# smaller than them.
+PAIRED_WAYS = 2
+PAIRED_GENERATOR = {"num_blocks": 16, "num_filters": 64}
+SURFACE_WARMUP = 10  # steps before the timed ones: 30 steps in all
+SURFACE_RUNS = 20
+DISTILL_RECIPE = ROOT / "examples/training/srresnet_distill_x4.yaml"
+DISTILL_EPOCHS = 1
+SUPERVISE_TIMEOUT_S = 300
+LOADER_FINDING = ("not ported: the GPU machine has no png.h, jpeglib.h, libpng or libjpeg "
+                  "(ROADMAP.md, Queue 1); PNGs are decoded by data/png.py")
+# A training child that SIGKILLs itself once, after the first epoch's resume
+# point says so (the pattern of the JAX package's end-to-end supervisor test).
+FLAKY_TRAIN = """
+import glob, json, os, signal, sys, threading, time
+sys.path.insert(0, {root!r})
+marker = {marker!r}
+if not os.path.exists(marker):
+    def killer():
+        while True:
+            for p in glob.glob({results!r} + "/*/checkpoints/resnet_resume_meta.json"):
+                try:
+                    if json.load(open(p))["completed_epochs"] >= 1:
+                        open(marker, "w").close()
+                        os.kill(os.getpid(), signal.SIGKILL)
+                except (OSError, ValueError, KeyError):
+                    pass
+            time.sleep(0.05)
+    threading.Thread(target=killer, daemon=True).start()
+from simplesr_tpu_torch.tools.train import main
+sys.exit(main([{config!r}, "--device", {device!r}] + sys.argv[1:]))
+"""
+
+
+def paired_mode_step(dev, work, gen, launches_by_path, card):
+    """Phase 12 (a): the paired mode's train step at full width. Returns
+    the profiler closure."""
+    from simplesr_tpu_torch.data.png import read_png
+    from simplesr_tpu_torch.ops.kernels import residual_trunk
+    from simplesr_tpu_torch.train import Generator, SRModel
+
+    images = [torch.from_numpy(read_png(p)).to(dev)
+              for p in sorted((ROOT / "data/corpus/gallery").glob("*.png"))]
+    batches = training_batches(gen, images, SURFACE_WARMUP + SURFACE_RUNS)
+
+    class Dirs:
+        model_dir = str(work / "surface" / "models")
+        checkpoint_dir = str(work / "surface" / "checkpoints")
+
+    generator = Generator.srresnet(4, batch_norm=False, dtype="bfloat16", seed=SEED, device=dev,
+                                   **PAIRED_GENERATOR)
+    model = SRModel("resnet", generator, "Adam", {"learning_rate": TRAIN_SCHEDULE},
+                    config=Dirs, device=dev, paired_ways=PAIRED_WAYS)
+    if not model.generator().uses_trunk_kernel:
+        raise AssertionError("the production generator lost the trunk kernel")
+
+    # an uneven batch is trimmed to a multiple of the ways, a smaller one skipped
+    lr, hr = batches[-1]
+    uneven = {}
+    for label, n in (("trimmed", TRAIN_BATCH - 1), ("skipped", PAIRED_WAYS - 1)):
+        before = model.step
+        _, uneven[label] = counted(lambda: model.train_step(lr[:n], hr[:n]))
+        uneven[label] = {"batch": n, "steps": model.step - before, "launches": uneven[label]}
+    log(12, check="(a) paired mode, uneven batches", **uneven)
+    if uneven["trimmed"]["steps"] != 1 or uneven["trimmed"]["launches"]["trunk"] != 1 \
+            or uneven["skipped"]["steps"] != 0 or uneven["skipped"]["launches"]["trunk"] != 0:
+        raise AssertionError(f"uneven batches: {uneven}")
+
+    # train_step, each step's trunk launches
+    per_step = []
+    it = iter(batches)
+
+    def step():
+        before = residual_trunk.launches
+        model.train_step(*next(it))
+        per_step.append(residual_trunk.launches - before)
+
+    ms, counts = counted(lambda: cuda_ms(step, runs=SURFACE_RUNS, warmup=SURFACE_WARMUP))
+    steps = SURFACE_WARMUP + SURFACE_RUNS
+    launches_by_path[f"paired_train_step_x{steps}"] = counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.train_step(*batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    mean_loss = model.generator_wrapper().epoch_metrics(True).results()["generator_loss"]
+    log(12, check="(a) paired mode, train_step", paired_ways=PAIRED_WAYS, step_ms=ms,
+        hr_mpix_per_s=TRAIN_BATCH * TRAIN_HR ** 2 / 1e6 / (ms / 1e3),
+        trunk_launches=sum(per_step), steps=steps, launches_all=counts, peak_mem_bytes=peak,
+        mean_loss=mean_loss, runs=SURFACE_RUNS, batch=[TRAIN_BATCH, TRAIN_HR, TRAIN_HR, 3],
+        card=card)
+    if per_step != [1] * steps or counts != {"trunk": steps, "patches": 0}:
+        raise AssertionError(f"train_step launches {per_step}, {counts}")
+    if not np.isfinite(mean_loss):
+        raise AssertionError(f"a non-finite training loss: {mean_loss}")
+
+    def profile():
+        """The profiler on 3 steps, after every timing."""
+        it = iter(batches)
+        log(12, profiler_3_steps=profile_steps(lambda: model.train_step(*next(it))), card=card)
+
+    return profile
+
+
+def supervised_production_run(dev, work, launches_by_path):
+    """Phase 12 (b): the production recipe as written, under the crash
+    supervisor, its first child SIGKILLed after epoch 1."""
+    from simplesr_tpu_torch.config import _yaml
+    from simplesr_tpu_torch.data.png import read_img
+    from simplesr_tpu_torch.train import load_model
+
+    spec = _yaml.load(RECIPE)
+    gallery = ROOT / "data/corpus/gallery"
+    results = work / "supervised"
+    reduced = {"train_data_paths": f"{spec['general']['train_data_paths']} -> {gallery} "
+                                   "(16 PNGs; the recipe's DIV2K is not in the repo)",
+               "results_save_path": "a temporary directory",
+               "num_epochs": f"{spec['general']['num_epochs']} -> {YAML_EPOCHS}",
+               "random_seed": "unset -> 0"}
+    spec["general"].update(train_data_paths=str(gallery), num_epochs=YAML_EPOCHS,
+                           random_seed=0, results_save_path=str(results))
+    config = work / "supervised.yaml"
+    config.write_text(_yaml.dump(spec))
+    marker = work / "killed_once"
+    wrapper = work / "flaky_train.py"
+    wrapper.write_text(FLAKY_TRAIN.format(root=str(ROOT), marker=str(marker),
+                                          results=str(results / "training"),
+                                          config=str(config), device=dev.type))
+    log(12, check="(b) the production recipe under the supervisor",
+        recipe=str(RECIPE.relative_to(ROOT)), reduced=reduced,
+        kept={k: spec["general"][k] for k in ("paired_train", "batch_size", "crop_size",
+                                              "num_crops", "augmentations")})
+    t = time.perf_counter()
+    # a session of its own, so that a timeout ends the training child too
+    proc = subprocess.Popen([sys.executable, "-m", "simplesr_tpu_torch.tools.supervise",
+                             "--max-restarts", "2", "--backoff", "0", "--cmd", sys.executable,
+                             str(wrapper)], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=SUPERVISE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"the supervised run passed {SUPERVISE_TIMEOUT_S} s")
+    run_s = time.perf_counter() - t
+    said = [line for line in out.splitlines() if line.startswith("[supervise]")]
+    if proc.returncode != 0:
+        raise AssertionError(f"the supervisor exited {proc.returncode}: {said}\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    runs = [r for r in (results / "training").iterdir() if not r.is_symlink()]
+    meta = json.loads((runs[0] / "checkpoints" / "resnet_resume_meta.json").read_text())
+    best = runs[0] / "models" / "resnet_gen_best.msgpack"
+    lr = torch.from_numpy(read_img(GALLERY_PNG)[:48, :64] / 255.0).float()[None].to(dev)
+    with torch.inference_mode():
+        sr, launches = counted(lambda: load_model(best, device=dev)(lr))
+    launches_by_path["production_best_file_forward"] = launches
+    record = {"exit": proc.returncode, "supervisor": said, "killed_once": marker.exists(),
+              "run_dirs": len(runs), "completed_epochs": meta["completed_epochs"],
+              "epoch_loss": meta["train_epoch_history"].get("generator_loss"), "run_s": run_s,
+              "best_file_out": list(sr.shape), "best_file_finite": bool(torch.isfinite(sr).all()),
+              "best_file_launches": launches, "loader": LOADER_FINDING}
+    log(12, check="(b) the supervised run", **record)
+    restarted = (len(said) >= 4 and said[1].startswith("[supervise] child crashed (rc=-9)")
+                 and said[2].endswith("--resume") and said[-1] == "[supervise] training complete")
+    if not (proc.returncode == 0 and restarted and marker.exists() and len(runs) == 1
+            and meta["completed_epochs"] == YAML_EPOCHS and record["best_file_finite"]
+            and tuple(sr.shape) == (1, 4 * 48, 4 * 64, 3) and launches["trunk"] == 1):
+        raise AssertionError(f"the supervised production run: {record}\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+
+
+def distill_run(dev, work, launches_by_path, card):
+    """Phase 12 (c): the distillation recipe for one epoch, and its step
+    against the same step without the teacher."""
+    from simplesr_tpu_torch.config import _yaml
+    from simplesr_tpu_torch.ops.kernels import residual_trunk
+    from simplesr_tpu_torch.tools import train as train_tool
+
+    spec = _yaml.load(DISTILL_RECIPE)
+    gallery = ROOT / "data/corpus/gallery"
+    reduced = {"train_data_paths": f"{spec['general']['train_data_paths']} -> {gallery} "
+                                   "(16 PNGs; DIV2K is not in the repo)",
+               "results_save_path": "a temporary directory",
+               "num_epochs": f"{spec['general']['num_epochs']} -> {DISTILL_EPOCHS}",
+               "random_seed": "unset -> 0",
+               "distill.model": f"{spec['general']['distill']['model']} -> "
+                                f"{RRDB_SERVED.relative_to(ROOT)} (8 RRDB x 64 as well; the "
+                                "chip copy leaves quality_r2_x4 out)"}
+    spec["general"].update(train_data_paths=str(gallery), num_epochs=DISTILL_EPOCHS,
+                           random_seed=0, results_save_path=str(work / "distill"))
+    spec["general"]["distill"]["model"] = str(RRDB_SERVED)
+    path = work / "distill.yaml"
+    path.write_text(_yaml.dump(spec))
+    log(12, check="(c) distillation", recipe=str(DISTILL_RECIPE.relative_to(ROOT)),
+        reduced=reduced, distill=spec["general"]["distill"])
+    calls, seen, epochs, waits, instrumented = run_instruments()
+    t = time.perf_counter()
+    code, launches = counted(lambda: instrumented(
+        lambda: train_tool.main([str(path), "--device", dev.type])))
+    run_s = time.perf_counter() - t
+    launches_by_path[f"distill_yaml_x{DISTILL_EPOCHS}_epoch"] = launches
+    model, pipeline = seen["model"], seen["pipeline"]
+    histories = model.histories()
+    terms = {part: {k: histories[part].get(k) for k in ("distillation_loss",
+                                                        "weighted_distillation_loss")}
+             for part in ("train_epoch", "valid_epoch")}
+    teacher = model._distill.teacher
+    frozen = all(p.grad is None and not p.requires_grad for p in teacher.parameters())
+    student_calls = sum(calls.values())
+    log(12, check="(c) the run", exit=code, calls=dict(calls), launches=launches,
+        distill_terms=terms, teacher=type(teacher).__name__, teacher_frozen=frozen,
+        run_s=run_s, epoch_s=[b - a for a, b in epochs])
+    values = [v for part in terms.values() for vs in part.values() for v in (vs or [None])]
+    if not (code == 0 and all(v is not None and np.isfinite(float(v)) for v in values)):
+        raise AssertionError(f"distillation run: exit {code}, terms {terms}")
+    if not (frozen and launches == {"trunk": student_calls, "patches": 0}):
+        raise AssertionError(f"teacher frozen {frozen}; launches {launches} for {dict(calls)}")
+
+    # the step with and without the teacher's term, alternating
+    it = pipeline.train_batch_generator()
+    loop = [next(it) for _ in range(4)]
+    it.close()
+    distiller = model._distill
+    per_step = []  # trunk launches of each distilled step
+
+    def stepper(with_teacher):
+        batches = iter(loop * (SURFACE_RUNS + 2))
+
+        def step():
+            model._distill = distiller if with_teacher else None
+            before = residual_trunk.launches
+            try:
+                model.train_step(*next(batches))
+            finally:
+                model._distill = distiller
+            if with_teacher:
+                per_step.append(residual_trunk.launches - before)
+        return step
+
+    ms = alternating_ms({"distilled": stepper(True), "plain": stepper(False)},
+                        runs=SURFACE_RUNS)
+    teacher_ms = cuda_ms(lambda: distiller.apply_fn(loop[0][0]), runs=10)
+    log(12, check="(c) the step with and without the teacher", step_ms=ms,
+        teacher_forward_ms=teacher_ms,
+        teacher_share=(ms["distilled"] - ms["plain"]) / ms["distilled"],
+        trunk_launches_per_distilled_step=sorted(set(per_step)), runs=SURFACE_RUNS, card=card)
+    if set(per_step) != {1}:
+        raise AssertionError(f"distilled steps launched {per_step} trunks")
+
+
+def training_surface_phase(dev, work, gen, launches_by_path, card):
+    """Phase 12: the training surface (see the docstring). Returns the
+    profiler closure of (a)."""
+    start("12 the training surface: paired mode, supervisor, distillation")
+    t_phase = time.perf_counter()
+    profile = paired_mode_step(dev, work, gen, launches_by_path, card)
+    t = time.perf_counter()
+    supervised_production_run(dev, work, launches_by_path)
+    supervised_s = time.perf_counter() - t
+    t = time.perf_counter()
+    distill_run(dev, work, launches_by_path, card)
+    log(12, check="(d) the native loader", ported=False, finding=LOADER_FINDING)
+    log(12, supervised_s=supervised_s, distill_s=time.perf_counter() - t,
+        phase_s=time.perf_counter() - t_phase)
+    return profile
+
+
 def main(work):
     from simplesr_tpu_torch.data.png import read_img, read_png, write_png
     from simplesr_tpu_torch.eval.evaluation import (_TILE_BATCH, _TILE_OVERLAP, _TILE_PATCH,
@@ -2295,8 +2584,10 @@ def main(work):
     profile_esrgan = esrgan_phase(dev, work, launches_by_path, smi_line, tiled_png)
     serving_phase(dev, work, launches_by_path, smi_line, tiled_png, tiled_lr, gallery_lr,
                   lr_batch, tiled_batches)
-    # the profilers of phases 7 to 10 last, after every timing
-    for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan):
+    profile_surface = training_surface_phase(dev, work, gen, launches_by_path, smi_line)
+    # the profilers of phases 7 to 10 and 12 last, after every timing
+    for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan,
+                    profile_surface):
         profile()
 
     def total(key):

@@ -161,11 +161,13 @@ class ConfigUtil:
                         paired_train=None, device_resident="auto",
                         resume=None):
         """Training-mode config. The arguments are the JAX package's, so that
-        its YAML files load unchanged; ``SRModel.init`` raises
+        its YAML files load unchanged; ``paired_train`` (``SRModel``'s
+        paired mode) and ``distill`` (a frozen teacher's term,
+        train/distill.py) reach ``SRModel.init``, which raises
         ``NotImplementedError`` for those the port has not ported yet
-        (``data_parallel`` on more than one device, ``fsdp``, ``distill``,
-        ``tensor_parallel``, ``pipeline_parallel``, ``paired_train`` > 1),
-        each naming its ROADMAP.md item. ``async_checkpointing`` changes nothing: the port
+        (``data_parallel`` on more than one device, ``fsdp``,
+        ``tensor_parallel``, ``pipeline_parallel``), each naming its
+        ROADMAP.md item. ``async_checkpointing`` changes nothing: the port
         writes its checkpoints at once. ``resume=True`` or ``"latest"``
         reuses the latest run's save dir and continues it from its resume
         point (see run_training); a run name (or a path) under

@@ -54,9 +54,20 @@ warm-starts the generator from such a directory of a pixel-trained run
 the optimizer's state when its structure matches. Orbax (the JAX package's
 checkpoints) cannot read them, nor they orbax's.
 
+``paired_ways`` (YAML ``paired_train``) is accepted as the JAX package
+accepts it: a plain BN-free SRResNet only, ``ways >= 2``, exclusive with
+tensor and pipeline parallelism, and a train batch that does not divide by
+``paired_ways`` trimmed to the largest multiple (one smaller than it is
+skipped). The JAX package then trains on a layout that packs that many batch
+items into the channels, an exact rewrite with the standard layout's loss,
+gradients and parameters that fills the TPU's 128-wide matrix unit. The port
+trains the standard layout, through the C = 64 trunk kernel: the same
+function, on a card whose convs tile C = 64 as they are. ``distill`` adds a
+frozen teacher's term to the generator's loss (``train/distill.py``), in
+training and in validation.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: distillation; meshes, FSDP, tensor and pipeline parallelism; the paired
-trunk.
+item: meshes, FSDP, tensor and pipeline parallelism.
 """
 
 import json
@@ -79,14 +90,31 @@ from simplesr_tpu_torch.train.optimizers import MultiSteps, SkipNonFinite, build
 _KEEP_CHECKPOINTS = 5
 _CHECKPOINT = re.compile(r"step_(\d+)\.pt")
 
-DISTILL_ITEM = "ROADMAP.md, Queue 1, distillation"
 PARALLEL_ITEM = "ROADMAP.md, Queue 1, the parallel layer"
-PAIRED_ITEM = "ROADMAP.md, Queue 1, paired_train"
 _VALID_LABEL_SEED = 4711  # the JAX package's validation key, folded with the iteration
 
 
 def not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet: {item}")
+
+
+def _check_paired(module, ways):
+    """``ways`` as an int, after the JAX package's guards on paired
+    training (``simplesr_tpu/train/paired.py: paired_train_apply``)."""
+    from simplesr_tpu_torch.models.srresnet import SRResNet
+
+    if type(module) is not SRResNet:
+        raise TypeError(
+            f"paired training supports plain SRResNet, got {type(module).__name__}")
+    if module.batch_norm:
+        raise ValueError(
+            "paired training requires batch_norm=False (packed-layout BN "
+            "would normalize each stream over batch/ways items — a "
+            "different function, not an exact rewrite)")
+    ways = int(ways)
+    if ways < 2:
+        raise ValueError(f"paired ways must be >= 2, got {ways}")
+    return ways
 
 
 class SRModel:
@@ -149,12 +177,14 @@ class SRModel:
             raise ValueError("ema_eval=True requires ema_decay")
         if fsdp and mesh is None:
             raise ValueError("fsdp=True requires a device mesh (mesh=...)")
+        if paired_ways is not None and (tensor_parallel or pipeline_parallel):
+            raise ValueError(
+                "paired_ways is mutually exclusive with tensor_parallel/"
+                "pipeline_parallel (they re-lay-out the same trunk)")
         unported = [
-            (distill is not None, "distillation", DISTILL_ITEM),
             (mesh is not None, "training on a mesh", PARALLEL_ITEM),
             (tensor_parallel, "tensor_parallel", PARALLEL_ITEM),
             (pipeline_parallel, "pipeline_parallel", PARALLEL_ITEM),
-            (paired_ways is not None and int(paired_ways) > 1, "paired_ways > 1", PAIRED_ITEM),
         ]
         for unsupported, what, item in unported:
             if unsupported:
@@ -201,6 +231,14 @@ class SRModel:
             self._discriminator = discriminator.to(self._device)
             self._d_params = list(discriminator.model().parameters())
             self._d_optimizer = optimizer(discriminator_optimizer, discriminator_optimizer_config)
+        self._paired_ways = 1 if paired_ways is None else \
+            _check_paired(generator.model(), paired_ways)
+        self._distill = None
+        if distill is not None:
+            from simplesr_tpu_torch.train.distill import build_distiller
+            self._distill = build_distiller(
+                distill, student_upsample_factor=generator.module_config().get(
+                    "upsample_factor"), device=self._device)
         self._ema_decay = None if ema_decay is None else float(ema_decay)
         self._ema_eval = bool(ema_eval)
         self._ema = self._fresh_ema()
@@ -249,17 +287,50 @@ class SRModel:
     def _image_metric_values(self, hr, sr):
         return {k: fn(hr, sr).mean() for k, fn in self._image_metrics.items()}
 
+    def _fit_train_batch(self, lr_batch, hr_batch):
+        """The train batch trimmed to the largest multiple of
+        ``paired_ways`` (None, None when it is smaller), as the JAX
+        package's ``_fit_batch_to_mesh`` trims it."""
+        n, b = self._paired_ways, lr_batch.shape[0]
+        if b % n == 0:
+            return lr_batch, hr_batch
+        keep = (b // n) * n
+        if keep == 0:
+            logging.getLogger("simple_sr").warning(
+                "skipping batch of %d: smaller than the required multiple "
+                "of %d (data mesh x paired ways)", b, n)
+            return None, None
+        logging.getLogger("simple_sr").warning(
+            "trimming uneven batch %d -> %d to a multiple of %d "
+            "(enable DataPipeline(drop_remainder=True) to avoid this)", b, keep, n)
+        return lr_batch[:keep], hr_batch[:keep]
+
+    def _add_distillation(self, loss, g_metrics, sr, lr):
+        """The generator's loss with the teacher's term added, and its
+        metrics (``generator_loss`` overwritten), as the JAX package adds
+        them."""
+        term, metrics = self._distill.loss_terms(sr, lr)
+        loss = loss + term
+        g_metrics.update(metrics)
+        g_metrics["generator_loss"] = loss
+        return loss
+
     def train_step(self, lr_batch, hr_batch):
         """One optimisation step: forward, losses, gradients and updates."""
+        lr_batch, hr_batch = self._fit_train_batch(lr_batch, hr_batch)
+        if lr_batch is None:
+            return
         lr, hr = self._batch(lr_batch), self._batch(hr_batch)
         module = self._generator.model()
         module.train()
         sr = module(lr).float()
         d_metrics = None
         if self._model_type == "gan":
-            g_grads, d_grads, g_metrics, d_metrics = self._gan_gradients(sr, hr)
+            g_grads, d_grads, g_metrics, d_metrics = self._gan_gradients(sr, hr, lr)
         else:
             loss, g_metrics = self._generator.calculate_loss(sr, hr, None, None)
+            if self._distill is not None:
+                loss = self._add_distillation(loss, g_metrics, sr, lr)
             g_grads = torch.autograd.grad(loss, self._params)
         updates = self._optimizer.count
         self._optimizer.apply(self._params, g_grads)
@@ -281,9 +352,10 @@ class SRModel:
             self._train_epoch_metrics.ensure(k)(v)
             self._batch_metrics.ensure(k)(v)
 
-    def _gan_losses(self, sr, hr):
+    def _gan_losses(self, sr, hr, lr):
         """The joint step's losses on one discriminator forward per input
-        (in training mode), the SR one on a detached copy ``sr_in`` of sr:
+        (in training mode), the SR one on a detached copy ``sr_in`` of sr,
+        and the teacher's term with ``distill``:
         (sr_in, d_loss, g_loss, g_metrics, d_metrics)."""
         disc = self._discriminator.model()
         disc.train()
@@ -291,14 +363,16 @@ class SRModel:
         sr_critic, hr_critic = disc(sr_in), disc(hr)
         d_loss, d_metrics = self._discriminator.calculate_loss(sr_critic, hr_critic, self._rng)
         g_loss, g_metrics = self._generator.calculate_loss(sr, hr, sr_critic, hr_critic)
+        if self._distill is not None:
+            g_loss = self._add_distillation(g_loss, g_metrics, sr, lr)
         return sr_in, d_loss, g_loss, g_metrics, d_metrics
 
-    def _gan_gradients(self, sr, hr):
+    def _gan_gradients(self, sr, hr, lr):
         """The joint step's gradients: the discriminator's of its loss, the
         generator's of its losses through the discriminator as it is now:
         their gradient at sr directly and through sr_in, carried back through
         the generator together."""
-        sr_in, d_loss, g_loss, g_metrics, d_metrics = self._gan_losses(sr, hr)
+        sr_in, d_loss, g_loss, g_metrics, d_metrics = self._gan_losses(sr, hr, lr)
         d_grads = torch.autograd.grad(d_loss, self._d_params, retain_graph=True)
         direct, through_d = torch.autograd.grad(g_loss, [sr, sr_in], allow_unused=True)
         sr_grad = direct if through_d is None else \
@@ -342,7 +416,9 @@ class SRModel:
                 labels = torch.Generator().manual_seed(
                     _VALID_LABEL_SEED * 1_000_003 + self._iterations)
                 _, d_metrics = self._discriminator.calculate_loss(sr_critic, hr_critic, labels)
-            _, g_metrics = self._generator.calculate_loss(sr, hr, sr_critic, hr_critic)
+            g_loss, g_metrics = self._generator.calculate_loss(sr, hr, sr_critic, hr_critic)
+            if self._distill is not None:
+                self._add_distillation(g_loss, g_metrics, sr, lr)
             img = self._image_metric_values(hr, sr)
         self._generator.accumulate_metrics(g_metrics, train=False)
         if d_metrics is not None:
@@ -782,17 +858,16 @@ class SRModel:
              discriminator=None, discriminator_optimizer=None,
              discriminator_optimizer_config=None, image_metrics=None, device="cuda"):
         """The model of a ConfigUtil: its type from the discriminator, its
-        early stopping, writers and directories from the config. What the
-        port has not ported raises ``NotImplementedError`` with its
-        ROADMAP.md item: more than one device under ``data_parallel``,
-        ``fsdp``, ``tensor_parallel``, ``pipeline_parallel``,
-        ``paired_train`` > 1 and ``distill``."""
+        early stopping, writers and directories, ``paired_train`` and
+        ``distill`` from the config. What the port has not ported raises
+        ``NotImplementedError`` with its ROADMAP.md item: more than one
+        device under ``data_parallel``, ``fsdp``, ``tensor_parallel`` and
+        ``pipeline_parallel``."""
         device = resolve_device(device)
         tp = int(getattr(config, "tensor_parallel", 0) or 0)
         pp = int(getattr(config, "pipeline_parallel", 0) or 0)
         if tp > 1 and pp > 1:
             raise ValueError("tensor_parallel and pipeline_parallel are mutually exclusive")
-        paired = getattr(config, "paired_train", None)
         multi_device = device.type == "cuda" and torch.cuda.device_count() > 1
         unported = [
             (getattr(config, "data_parallel", False) and multi_device,
@@ -800,8 +875,6 @@ class SRModel:
             (getattr(config, "fsdp", False), "fsdp", PARALLEL_ITEM),
             (tp > 1, "tensor_parallel", PARALLEL_ITEM),
             (pp > 1, "pipeline_parallel", PARALLEL_ITEM),
-            (paired is not None and int(paired) > 1, "paired_train > 1", PAIRED_ITEM),
-            (getattr(config, "distill", None) is not None, "distill", DISTILL_ITEM),
         ]
         for unsupported, what, item in unported:
             if unsupported:
@@ -818,6 +891,8 @@ class SRModel:
             ema_decay=getattr(config, "ema_decay", None),
             ema_eval=getattr(config, "ema_eval", False),
             grad_accum_steps=getattr(config, "grad_accum_steps", None),
+            distill=getattr(config, "distill", None),
+            paired_ways=getattr(config, "paired_train", None),
             epoch_train_summary_writer=config.epoch_train_summary_writer,
             batch_train_summary_writer=config.batch_train_summary_writer,
             epoch_validation_summary_writer=config.epoch_validation_summary_writer,

@@ -3,7 +3,9 @@
 timestamped run name and the TensorBoard writers, and the same save-dir
 tree; resume directories resolve alike; ``from_yaml`` builds the run on the
 CPU where the port can train the example (the GAN ones in GAN mode) and
-raises NotImplementedError, naming its ROADMAP.md item, where it cannot."""
+raises NotImplementedError, naming its ROADMAP.md item, where it cannot
+(the paired production and distillation examples build since the training
+surface was ported)."""
 
 import os
 from pathlib import Path
@@ -22,10 +24,9 @@ GALLERY = str(ROOT / "data/corpus/gallery")
 TRAINING = sorted((ROOT / "examples/training").glob("*.yaml"))
 # examples whose run the port builds; the others name what is not ported
 PORTED = {"minimal_example.yaml", "srresnet128_x4.yaml", "srresnet_denoise_x2.yaml",
-          "srresnet_x4.yaml", "esrgan_x4.yaml", "srgan_x4.yaml"}
-UNPORTED = {"rrdb_deep_scaled_x4.yaml": "ROADMAP.md",
-            "srresnet_distill_x4.yaml": "distillation",
-            "srresnet_x4_paired_production.yaml": "paired_train"}
+          "srresnet_x4.yaml", "esrgan_x4.yaml", "srgan_x4.yaml", "srresnet_distill_x4.yaml",
+          "srresnet_x4_paired_production.yaml"}
+UNPORTED = {"rrdb_deep_scaled_x4.yaml": "ROADMAP.md"}
 
 
 def _general(path, results):
@@ -68,7 +69,8 @@ def test_training_config_matches_jax(path, tmp_path):
 
 
 @pytest.mark.parametrize("path", TRAINING, ids=lambda p: p.name)
-def test_from_yaml_builds_or_names_the_item(path, tmp_path):
+def test_from_yaml_builds_or_names_the_item(path, tmp_path, monkeypatch):
+    monkeypatch.chdir(ROOT)  # the distillation example names its teacher relative to the repo
     spec, general = _general(path, tmp_path)
     spec["general"] = dict(general, operation="training")
     if path.name in PORTED:
@@ -80,20 +82,25 @@ def test_from_yaml_builds_or_names_the_item(path, tmp_path):
         assert (model.discriminator_wrapper() is not None) == gan
         assert (model.ema_parameters is not None) == bool(general.get("ema_decay"))
         assert pipeline.train_imgs and pipeline.crop_size == tuple(general["crop_size"])
+        assert model._paired_ways == (general.get("paired_train") or 1)
+        assert (model._distill is not None) == ("distill" in general)
     else:
         with pytest.raises(NotImplementedError, match=UNPORTED[path.name]):
             ConfigUtil.from_yaml(spec, device="cpu")
 
 
 def test_paired_train_raises_naming_its_item(tmp_path):
+    """Ported since: ``paired_train: 2`` builds the paired mode (no longer
+    raising), which trains the trunk kernel's forward as the same recipe
+    without the key does."""
     spec, general = _general(ROOT / "examples/training/srresnet_x4_paired_production.yaml",
                              tmp_path)
     spec["general"] = dict(general, operation="training")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, paired_train"):
-        ConfigUtil.from_yaml(spec, device="cpu")
+    _, _, model = ConfigUtil.from_yaml(spec, device="cpu")
+    assert model._paired_ways == 2 and model.generator().uses_trunk_kernel
     del spec["general"]["paired_train"]
     _, _, model = ConfigUtil.from_yaml(spec, device="cpu")
-    assert model.generator().uses_trunk_kernel
+    assert model._paired_ways == 1 and model.generator().uses_trunk_kernel
 
 
 def test_resume_dir_resolution_matches_jax(tmp_path):

@@ -293,12 +293,14 @@ SERVING_MODULES = ["ops/polyphase.py", "models/polyphase.py", "ops/ensemble.py",
                    "ops/pairing.py", "models/paired.py", "eval/evaluation.py",
                    "tools/run_example.py", "tools/upscale.py", "tools/serve.py",
                    "tools/http_gateway.py", "zoo.py", "tools/interpolate.py", "data/png.py"]
+TRAINING_SURFACE_MODULES = ["train/distill.py", "config/experiment.py", "tools/supervise.py"]
 
 
 def test_port_imports_only_torch_numpy_and_stdlib():
     files = sorted((ROOT / "simplesr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
-    assert {ROOT / "simplesr_tpu_torch" / m for m in GAN_MODULES + SERVING_MODULES} <= set(files)
+    assert {ROOT / "simplesr_tpu_torch" / m
+            for m in GAN_MODULES + SERVING_MODULES + TRAINING_SURFACE_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
@@ -311,7 +313,8 @@ def test_port_imports_only_torch_numpy_and_stdlib():
                                    "run_training", "build_rrdb", "discriminator",
                                    "esrgan_generator", "gan_yaml", "serve", "serve_http",
                                    "zoo_load", "run_example", "evaluate_on_testdata",
-                                   "engine_fast", "engine_ensemble"])
+                                   "engine_fast", "engine_ensemble", "build_distiller",
+                                   "supervise"])
 def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -323,8 +326,9 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     from simplesr_tpu_torch.tools.http_gateway import serve_http
     from simplesr_tpu_torch.tools.run_example import main as run_example_main
     from simplesr_tpu_torch.tools.serve import serve
+    from simplesr_tpu_torch.tools.supervise import main as supervise_main
     from simplesr_tpu_torch.tools.train import main as train_main
-    from simplesr_tpu_torch.train import Discriminator, Generator, run_training
+    from simplesr_tpu_torch.train import Discriminator, Generator, build_distiller, run_training
     from simplesr_tpu_torch.train.serialization import load_model
 
     spec = _yaml.load(str(ROOT / "examples/training/minimal_example.yaml"))
@@ -358,7 +362,9 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
                  str(GALLERY[0].parent), None, [small_model], str(tmp_path / "results"),
                  operation="inference", create_save_dirs=False)),
              "engine_fast": lambda: SREngine(small_model, 2, fast=True),
-             "engine_ensemble": lambda: SREngine(small_model, 2, ensemble=True)}
+             "engine_ensemble": lambda: SREngine(small_model, 2, ensemble=True),
+             "build_distiller": lambda: build_distiller(small_model),
+             "supervise": lambda: supervise_main([str(yaml_path)])}
     inference = {"general": {"operation": "inference", "data_paths": str(GALLERY[0].parent),
                              "test_originals_path": None, "model_paths": [small_model],
                              "results_save_path": str(tmp_path / "results"), "scale": 2}}

@@ -211,12 +211,16 @@ def test_constructor_checks_and_unported_options(tmp_path):
         SRModel("resnet", gen, grad_accum_steps=0, device="cpu")
     with pytest.raises(ValueError):
         SRModel("resnet", gen, ema_decay=1.5, device="cpu")
-    unported = [dict(distill={"teacher": "x"}), dict(mesh=object()), dict(tensor_parallel=True),
-                dict(pipeline_parallel=True), dict(paired_ways=2)]
+    unported = [dict(mesh=object()), dict(tensor_parallel=True), dict(pipeline_parallel=True)]
     for kw in unported:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             SRModel("resnet", generator=gen, device="cpu", **kw)
-    # ported since: the GAN mode, the warm start, EMA and gradient accumulation
+    # ported since: distillation (a spec without a teacher is refused as the
+    # JAX package refuses it), paired training, the GAN mode, the warm start,
+    # EMA and gradient accumulation
+    with pytest.raises(ValueError, match="needs a 'model'"):
+        SRModel("resnet", generator=gen, device="cpu", distill={"teacher": "x"})
+    assert SRModel("resnet", generator=gen, device="cpu", paired_ways=2)._paired_ways == 2
     from simplesr_tpu_torch.train import Discriminator
     from simplesr_tpu_torch.train.optimizers import MultiSteps
 
