@@ -167,6 +167,40 @@ plain PyTorch version, in one process, with no arguments:
      teacher (alternating, medians of 20); (d) the native loader is not
      ported (the GPU machine has no libpng or libjpeg headers), which the
      phase prints.
+ 13. the parallel layer (``simplesr_tpu_torch.parallel``). The card is one:
+     NCCL refuses two ranks on one device, so two rank processes
+     (``chip_smoke.py --parallel-rank ...``, started by the phase, waited
+     for with a timeout, killed on failure) share cuda:0 over gloo, the
+     port's collectives staging CUDA tensors through host memory. Which form
+     runs at 2 ranks and which at 1 is fixed in PARALLEL_FORMS and printed.
+     (a) which c10d operations gloo itself takes with CUDA tensors, each
+     in two processes of its own (gloo can abort a process handed device
+     memory); (b) data
+     parallel on the production generator (x4, 16 x 64, BN-free, bf16,
+     float32 parameters), a global batch of 16 gallery crops of 96 x 96, 8 a
+     rank: 3 SGD steps against one process (PARALLEL_UPDATE_REL_TOL), one
+     trunk launch a rank a step, then 10 Adam steps with finite falling
+     losses; FSDP's 3 SGD steps against DP's, its state sharded and no
+     packed trunk copy kept; (c) examples/training/rrdb_deep_scaled_x4.yaml
+     (23 RRDB blocks x 64, remat, EMA, accumulation, data_parallel and fsdp)
+     through ``tools.train.main`` at world size 1, cut to the gallery, 1
+     epoch, 1 crop an image and seed 0 (printed in ``reduced``): exit 0, the
+     fsdp warning, replicated state; (d) the flagship on phase 3's 1100 x
+     1040 LR image in row strips over 2 ranks (one trunk launch a rank)
+     against the whole-image forward (PARALLEL_SPATIAL_REL_TOL); (e) tensor
+     and pipeline parallelism over 2 ranks: PP's forward against the
+     kernel's (ROUTE_*), TP's against float64 sums as the model's ResBlock
+     route on the card is (PARALLEL_TP_FLOAT64_RATIO), and one SGD step of
+     each against one process's
+     (PARALLEL_MP_UPDATE_REL_TOL), PP with two trunk launches a rank (one a
+     microbatch), TP none (its split convs are PyTorch's); (f) SREngine over
+     a one-device mesh, bit-equal to no mesh on 4 requests (the same call,
+     a check of the wiring), over a mesh of two cuda:0 entries (each
+     request padded to 2 and split across the replicas on the card) within
+     ENGINE_MAX_ABS_TOL of no mesh, and ``--mesh-dp 2`` refused with the
+     device count. Every rank's launch counts join the
+     kernels line. Timings at 2 ranks on one card are printed, labelled, and
+     no speed figure.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -179,6 +213,7 @@ import contextlib
 import copy
 import faulthandler
 import json
+import logging
 import os
 import signal
 import socket
@@ -2305,6 +2340,477 @@ def training_surface_phase(dev, work, gen, launches_by_path, card):
     return profile
 
 
+# ------------------------------------------------------------------ phase 13
+# The parallel layer on the one card. Two ranks (processes) share cuda:0
+# over gloo: NCCL refuses two ranks on one device. The port's collectives
+# stage CUDA tensors through host memory under gloo, always, so every form
+# runs at 2 ranks whatever gloo itself accepts on CUDA (probe (a) prints
+# that); the YAML run (c) and the engine (f) are one process by design.
+# A step at 2 ranks sharing one card is no speed figure.
+PARALLEL_WORLD = 2
+PARALLEL_FORMS = {"dp": 2, "fsdp": 2, "spatial": 2, "tp": 2, "pp": 2, "yaml_fsdp": 1,
+                  "engine_mesh": 1}
+PARALLEL_TIMEOUT_S = 300
+PARALLEL_SGD_LR = 0.05
+PARALLEL_DP_STEPS = 3
+PARALLEL_ADAM_STEPS = 10
+# After 3 SGD steps, ||p_2 ranks - p_1 process|| over all parameters at most
+# this share of ||p_1 process - p_init||: the ranks change only the order of
+# float32 sums (each rank's 8 items, then their mean); FSDP against DP alike.
+PARALLEL_UPDATE_REL_TOL = 1e-2
+# TP and PP after one SGD step, against one process, the same ratio: TP's
+# split convs round where flax's ResBlocks round, not where the trunk
+# kernel does (bf16 through 16 blocks), PP stages the kernel itself.
+PARALLEL_MP_UPDATE_REL_TOL = 5e-2
+# PP's forward is held at ROUTE_* against the kernel's. TP's cannot be held
+# to one process's route at ROUTE_*: its row-parallel convs sum 32 + 32
+# input channels where one process sums 64, and two summation orders of a
+# 16-block bf16 model part by about as much as ROUTE_MEAN_ABS_TOL allows
+# and more (PERF.md §6). So TP's forward, like phase 7's
+# wide model, is held against float64 sums (``float64_sums``): its mean abs
+# error at most this factor of the model's own ResBlock route's on the card.
+PARALLEL_TP_FLOAT64_RATIO = 1.5
+# Spatial strips against the whole-image forward, max |diff| / max |ref| on
+# the rows away from the image's top and bottom (the outer halo is zeros,
+# as the tiled route pads): bf16 features through cuDNN's choice of
+# algorithm per shape, about two bf16 ulps.
+PARALLEL_SPATIAL_REL_TOL = 3e-2
+PARALLEL_HALO = 32
+DEEP_RECIPE = ROOT / "examples/training/rrdb_deep_scaled_x4.yaml"
+FSDP_WARNING = "fsdp: true requested but only one device is visible"
+
+
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter", "send_recv")
+
+
+def gloo_probe_rank(op, rank, port):
+    """One of two ranks of probe (a): ``op`` over gloo with CUDA tensors on
+    cuda:0, checked; exits 0 when gloo took it and the result is right. A
+    refusal raises; gloo may also abort the process (a pointer to device
+    memory handed to a socket), which is why each operation runs in
+    processes of its own (``chip_smoke.py --gloo-probe OP RANK PORT``)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=60))
+    x = torch.full((4,), float(rank + 1), device=dev)
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        want = torch.full((4,), 3.0)
+    elif op == "broadcast":
+        dist.broadcast(x, 0)
+        want = torch.full((4,), 1.0)
+    elif op == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        x, want = torch.cat(parts), torch.cat([torch.full((4,), 1.0), torch.full((4,), 2.0)])
+    elif op == "reduce_scatter":
+        out = torch.empty_like(x)
+        dist.reduce_scatter(out, [x, 2 * x])
+        x, want = out, torch.full((4,), 3.0 * (rank + 1))
+    else:
+        got = torch.empty_like(x)
+        for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                            dist.P2POp(dist.irecv, got, 1 - rank)]):
+            work.wait()
+        x, want = got, torch.full((4,), float(2 - rank))
+    torch.cuda.synchronize(dev)
+    if not torch.equal(x.cpu(), want):
+        raise AssertionError(f"{op}: {x.cpu().tolist()} != {want.tolist()}")
+    dist.destroy_process_group()
+    return 0
+
+
+def gloo_cuda_probe(timeout=120):
+    """Probe (a): which c10d operations gloo takes with CUDA tensors on this
+    torch, each in two processes of its own, all at once: {op: True, or how
+    it failed}."""
+    runs = {}
+    for op in GLOO_PROBE_OPS:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        runs[op] = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-probe",
+                                      op, str(r), str(port)], cwd=str(ROOT),
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                    for r in range(2)]
+    deadline = time.monotonic() + timeout
+    accepted = {}
+    for op, procs in runs.items():
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + " (timed out)")
+        codes = [p.returncode for p in procs]
+        if not any(codes):
+            accepted[op] = True
+        else:
+            lines = [ln for o in outs for ln in o.strip().splitlines()[-1:]]
+            accepted[op] = f"exit {codes}: {lines[0][:160] if lines else ''}"
+    return accepted
+
+
+def update_ratio(params, ref, init):
+    """||params - ref|| / ||ref - init|| over all tensors."""
+    num = sum(((a.float() - b.float()) ** 2).sum().item() for a, b in zip(params, ref))
+    den = sum(((b.float() - c.float()) ** 2).sum().item() for b, c in zip(ref, init))
+    return (num / den) ** 0.5
+
+
+def parallel_rank(rank, world, port, work, dev=None):
+    """One rank of phase 13 (``chip_smoke.py --parallel-rank RANK WORLD PORT
+    DIR``): every 2-rank form in turn on ``dev`` (cuda:0); writes
+    DIR/rank<RANK>.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from simplesr_tpu_torch.data.png import read_img, read_png
+    from simplesr_tpu_torch.parallel import (MODEL_AXIS, SPATIAL_AXIS, STAGE_AXIS, make_mesh,
+                                             pipeline_apply, spatial_sharded_apply, tp_apply)
+    from simplesr_tpu_torch.train import Generator, SRModel, load_model
+
+    dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    out = {"rank": rank, "launches": {}}
+
+    images = [torch.from_numpy(read_png(p)).to(dev)
+              for p in sorted((ROOT / "data/corpus/gallery").glob("*.png"))]
+    (lr, hr), = training_batches(torch.Generator().manual_seed(SEED), images, 1)
+
+    class Dirs:
+        model_dir = str(work / f"r{rank}" / "models")
+        checkpoint_dir = str(work / f"r{rank}" / "checkpoints")
+
+    def build(mesh=None, optimizer="SGD", lr_=PARALLEL_SGD_LR, **kw):
+        gen = Generator.srresnet(4, num_blocks=16, num_filters=64, batch_norm=False,
+                                 dtype="bfloat16", seed=SEED, device=dev)
+        return SRModel("resnet", gen, optimizer, {"learning_rate": lr_}, config=Dirs,
+                       mesh=mesh, device=dev, **kw)
+
+    def steps(model, n, x=lr, y=hr):
+        for _ in range(n):
+            model.train_step(x, y)
+        torch.cuda.synchronize(dev)
+
+    def whole(model):
+        with model._whole():
+            return [p.detach().clone() for p in model._params]
+
+    def timed_step(model, x=lr, y=hr):
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        model.train_step(x, y)
+        end.record()
+        end.synchronize()
+        return begin.elapsed_time(end)
+
+    # (b) data parallel: 8 of the 16 crops a rank
+    mesh = make_mesh()
+    dp = build(mesh)
+    init = whole(dp)
+    _, out["launches"]["dp_sgd_x3"] = counted(lambda: steps(dp, PARALLEL_DP_STEPS))
+    dp_params = whole(dp)
+    single = None
+    if rank == 0:
+        single = build()
+        steps(single, PARALLEL_DP_STEPS)
+        out["dp_vs_one_process"] = update_ratio(dp_params, whole(single), init)
+    adam = build(mesh, "Adam", 1e-4)
+    adam.before_epoch()
+
+    def adam_steps():
+        for _ in range(PARALLEL_ADAM_STEPS):
+            adam.train_step(lr, hr)
+            adam.after_train_batch()
+        torch.cuda.synchronize(dev)
+
+    _, out["launches"]["dp_adam_x10"] = counted(adam_steps)
+    out["adam_losses"] = [float(v) for v in adam.histories()["train_batch"]["generator_loss"]]
+    out["dp_step_ms_2_ranks_one_card"] = timed_step(dp)
+
+    # FSDP: the same 3 SGD steps on the shards
+    fs = build(mesh, fsdp=True)
+    _, out["launches"]["fsdp_sgd_x3"] = counted(lambda: steps(fs, PARALLEL_DP_STEPS))
+    out["fsdp_vs_dp"] = update_ratio(whole(fs), dp_params, init)
+    shards = dict(zip(fs._param_names, fs.parameter_shards))
+    out["fsdp_held"] = {"sharded": sum(bool(s) for s in fs.state_shardings.values()),
+                        "elements": sum(t.numel() for t in shards.values()),
+                        "whole": sum(t.numel() for t in dp_params),
+                        "packed_kept": fs.generator()._packed is not None}
+    out["fsdp_step_ms_2_ranks_one_card"] = timed_step(fs)
+
+    # (d) spatial: the flagship on phase 4's 1100 x 1040 LR image, in row strips
+    model = load_model(FLAGSHIP, device=dev)
+    img = torch.from_numpy(read_img(work / "tiled_lr.png") / 255.0).float().to(dev)
+    sp = make_mesh({SPATIAL_AXIS: world})
+    with torch.inference_mode():
+        sr, out["launches"]["spatial_flagship"] = counted(
+            lambda: spatial_sharded_apply(model, img, sp, 4, halo=PARALLEL_HALO))
+        if rank == 0:
+            ref = model(img[None])[0]
+            m = PARALLEL_HALO * 4
+            diff = (sr[m:-m] - ref[m:-m]).abs()
+            out["spatial"] = {"shape": list(sr.shape), "finite": bool(torch.isfinite(sr).all()),
+                              "interior_max_rel": (diff.max() / ref[m:-m].abs().max()).item(),
+                              "interior_mean_abs": diff.mean().item(),
+                              "border_max_abs": (sr[:m] - ref[:m]).abs().max().item()}
+
+    # (e) tensor and pipeline parallel: forward and one SGD step each
+    x, y = lr[:4], hr[:4]
+    base = build()
+    want = {}
+    if rank == 0:
+        with torch.no_grad():
+            # PP stages the trunk kernel: against the kernel's forward. TP
+            # rounds where flax's ResBlocks round (the JAX package's TP
+            # forward), in another order of float32 sums: against float64
+            # sums, beside the model's ResBlock route on the card.
+            module = base.generator()
+            want["pp"] = module(x)
+            module.uses_trunk_kernel = False
+            want["tp"] = module(x)
+            module.uses_trunk_kernel = True
+            exact = copy.deepcopy(module).cpu()
+            exact.uses_trunk_kernel = False
+            want["float64"] = float64_sums(exact, x.cpu()).to(dev)
+    for form, axes, kw in (("tp", {MODEL_AXIS: world}, {"tensor_parallel": True}),
+                           ("pp", {STAGE_AXIS: world}, {"pipeline_parallel": True,
+                                                        "pipeline_microbatches": 2})):
+        mm = make_mesh(axes)
+        module = base.generator()
+        f = tp_apply(module, mm) if form == "tp" else pipeline_apply(module, mm, 2)
+        with torch.no_grad():
+            got, out["launches"][f"{form}_forward"] = counted(lambda: f(x))
+        trained = build(mm, **kw)
+        start_params = whole(trained)
+        _, out["launches"][f"{form}_sgd_x1"] = counted(lambda: steps(trained, 1, x, y))
+        if rank == 0:
+            one = build()
+            steps(one, 1, x, y)
+            d = (got - want[form]).abs()
+            out[form] = {"forward_max_abs": d.max().item(), "forward_mean_abs": d.mean().item(),
+                         "vs": "the kernel's forward" if form == "pp" else "the ResBlock route",
+                         "kernel_forward_max_abs": (got - want["pp"]).abs().max().item(),
+                         "float64_mean_abs": (got - want["float64"]).abs().mean().item(),
+                         "resblock_route_float64_mean_abs":
+                             (want["tp"] - want["float64"]).abs().mean().item(),
+                         "step_vs_one_process": update_ratio(whole(trained), whole(one),
+                                                             start_params)}
+        out[f"{form}_step_ms_2_ranks_one_card"] = timed_step(trained, x, y)
+    dist.barrier()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(dev, work, launches_by_path, card):
+    """Phase 13: the parallel layer (see the docstring)."""
+    from simplesr_tpu_torch.config import _yaml
+    from simplesr_tpu_torch.data.png import read_img
+    from simplesr_tpu_torch.parallel import make_mesh
+    from simplesr_tpu_torch.tools import serve as serve_tool
+    from simplesr_tpu_torch.tools import train as train_tool
+    from simplesr_tpu_torch.tools.serve import SREngine
+    from simplesr_tpu_torch.train import SRModel
+
+    start("13 the parallel layer")
+    t_phase = time.perf_counter()
+    log(13, forms_by_ranks=PARALLEL_FORMS, backend="gloo on cuda:0 (host-staged collectives)",
+        note="a step at 2 ranks sharing one card is no speed figure")
+    pdir = work / "parallel"
+    pdir.mkdir()
+    (pdir / "tiled_lr.png").write_bytes((work / "tiled_lr.png").read_bytes())
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    probe = gloo_cuda_probe()
+    log(13, check="(a) gloo with CUDA tensors, each operation in two processes of its own",
+        accepted=probe)
+    logs = [open(pdir / f"rank{r}.log", "w+") for r in range(PARALLEL_WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
+                               str(r), str(PARALLEL_WORLD), str(port), str(pdir)],
+                              cwd=str(ROOT), stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(PARALLEL_WORLD)]
+    try:
+        # (c) the repo's deep-scaled YAML at world size 1, meanwhile
+        spec = _yaml.load(DEEP_RECIPE)
+        gallery = ROOT / "data/corpus/gallery"
+        reduced = {"train_data_paths": f"{spec['general']['train_data_paths']} -> {gallery}",
+                   "results_save_path": "a temporary directory",
+                   "num_epochs": f"{spec['general']['num_epochs']} -> 1",
+                   "num_crops": f"{spec['general']['num_crops']} -> 1",
+                   "random_seed": "unset -> 0"}
+        spec["general"].update(train_data_paths=str(gallery), num_epochs=1, num_crops=1,
+                               random_seed=0, results_save_path=str(pdir / "deep"))
+        path = pdir / "deep.yaml"
+        path.write_text(_yaml.dump(spec))
+        seen, messages = {}, []
+        init = SRModel.init
+
+        def capture(*a, **k):
+            seen["model"] = init(*a, **k)
+            return seen["model"]
+
+        def catch(record):  # a filter: the run's logger setup replaces the handlers
+            messages.append(record.getMessage())
+            return True
+
+        logging.getLogger("simple_sr").addFilter(catch)
+        SRModel.init = staticmethod(capture)
+        t = time.perf_counter()
+        try:
+            code, launches = counted(lambda: train_tool.main([str(path)]))
+        finally:
+            SRModel.init = staticmethod(init)
+            logging.getLogger("simple_sr").removeFilter(catch)
+        launches_by_path["parallel_yaml_deep_rrdb_world1"] = launches
+        model = seen["model"]
+        warned = any(FSDP_WARNING in m for m in messages)
+        gen = spec["model"]["generator"]
+        log(13, check="(c) rrdb_deep_scaled_x4.yaml at world size 1", reduced=reduced,
+            generator={k: gen[k] for k in ("architecture", "num_blocks", "num_filters",
+                                           "remat")},
+            exit=code, fsdp_warned=warned, replicated=model._zero is None and model._mesh is None,
+            step=model.step, launches=launches, run_s=time.perf_counter() - t, card=card)
+        if code != 0 or not warned or model._zero is not None or model._mesh is not None:
+            raise AssertionError("the deep-scaled YAML did not train replicated with the fsdp "
+                                 "warning")
+
+        # (f) the engine over a one-device mesh (the same call as no mesh,
+        # so bit-equal by construction: a check of the wiring), over a mesh
+        # of two cuda:0 entries (each request padded to the minimum batch of
+        # 2 and split, one image a replica, on the card), and --mesh-dp 2 on
+        # one card
+        gallery_lr = read_img(GALLERY_PNG) / 255.0
+        requests = [gallery_lr[:64, :80], gallery_lr[:96, :128], gallery_lr[32:96, 16:96],
+                    gallery_lr[:64, :80]]
+        outs, calls = {}, []
+        for label, mesh in (("none", None), ("one_device", make_mesh(devices=[dev])),
+                            ("two_entries", make_mesh(devices=[dev, dev]))):
+            engine = SREngine(FLAGSHIP, 4, max_batch=4, mesh=mesh, device=dev)
+            if label == "two_entries":
+                for i, (d, predict) in enumerate(engine._replicas):
+                    engine._replicas[i] = (d, lambda x, i=i, p=predict: (
+                        calls.append((i, int(x.shape[0]))), p(x))[1])
+            try:
+                outs[label], launches = counted(
+                    lambda: [engine.upscale(r.astype(np.float32)) for r in requests])
+            finally:
+                engine.close()
+            launches_by_path[f"parallel_engine_mesh_{label}"] = launches
+        equal = all(np.array_equal(a, b) for a, b in zip(outs["none"], outs["one_device"]))
+        split = sorted({i for i, _ in calls}) == [0, 1] and all(n == 1 for _, n in calls) \
+            and len(calls) == 2 * len(requests)
+        two_err = max(float(np.abs(a - b).max()) for a, b in zip(outs["none"],
+                                                                 outs["two_entries"]))
+        err = io_stderr(lambda: serve_tool.main(["--model", str(FLAGSHIP), "--scale", "4",
+                                                 "--socket", str(pdir / "s"),
+                                                 "--mesh-dp", "2"]))
+        refused = "--mesh-dp 2 but only 1 devices are available" in err
+        log(13, check="(f) SREngine over a mesh", requests=len(requests),
+            one_device_bit_equal_to_no_mesh=equal,
+            two_entries_split=split, two_entries_replica_calls=calls,
+            two_entries_max_abs_vs_no_mesh=two_err, bound=ENGINE_MAX_ABS_TOL,
+            mesh_dp_2_refused=refused,
+            launches={k: launches_by_path[f"parallel_engine_mesh_{k}"]
+                      for k in ("one_device", "two_entries")})
+        if not (equal and split and two_err <= ENGINE_MAX_ABS_TOL and refused):
+            raise AssertionError(f"engine mesh: bit-equal {equal}, split {split}, two entries "
+                                 f"{two_err} (bound {ENGINE_MAX_ABS_TOL}), --mesh-dp 2 "
+                                 f"refused {refused}")
+
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    tails = []
+    for f in logs:
+        f.seek(0)
+        tails.append(f.read()[-3000:])
+        f.close()
+    if any(codes):
+        raise AssertionError(f"parallel ranks exited {codes}:\n" + "\n".join(tails))
+    ranks = [json.loads((pdir / f"rank{r}.json").read_text()) for r in range(PARALLEL_WORLD)]
+    for r, res in enumerate(ranks):
+        for path_, counts in res["launches"].items():
+            launches_by_path[f"parallel_{path_}_rank{r}"] = counts
+    r0 = ranks[0]
+    expected = {"dp_sgd_x3": PARALLEL_DP_STEPS, "dp_adam_x10": PARALLEL_ADAM_STEPS,
+                "fsdp_sgd_x3": PARALLEL_DP_STEPS, "spatial_flagship": 1, "tp_forward": 0,
+                "tp_sgd_x1": 0, "pp_forward": 2, "pp_sgd_x1": 2}
+    launches = [{k: res["launches"][k]["trunk"] for k in expected} for res in ranks]
+    losses = r0["adam_losses"]
+    log(13, check="(b) data parallel, 2 ranks x 8 of 16 crops of 96^2, production generator",
+        dp_vs_one_process_update_ratio=r0["dp_vs_one_process"],
+        fsdp_vs_dp_update_ratio=r0["fsdp_vs_dp"], tol=PARALLEL_UPDATE_REL_TOL,
+        fsdp_held=[res["fsdp_held"] for res in ranks], adam_losses=losses,
+        trunk_launches_by_rank=launches, expected=expected,
+        step_ms_2_ranks_one_card={k: [res[f"{k}_step_ms_2_ranks_one_card"] for res in ranks]
+                                  for k in ("dp", "fsdp", "tp", "pp")},
+        card=card)
+    log(13, check="(d) spatial, 2 ranks on the card", ranks=PARALLEL_WORLD, halo=PARALLEL_HALO,
+        **r0["spatial"], tol=PARALLEL_SPATIAL_REL_TOL)
+    log(13, check="(e) tensor and pipeline parallel, 2 ranks on the card", tp=r0["tp"],
+        pp=r0["pp"], pp_forward_tol=[ROUTE_MAX_ABS_TOL, ROUTE_MEAN_ABS_TOL],
+        tp_float64_ratio_tol=PARALLEL_TP_FLOAT64_RATIO, step_tol=PARALLEL_MP_UPDATE_REL_TOL)
+    log(13, phase_s=time.perf_counter() - t_phase)
+    failures = []
+    if any(got != expected for got in launches):
+        failures.append(f"trunk launches {launches}, expected {expected}")
+    if not r0["dp_vs_one_process"] < PARALLEL_UPDATE_REL_TOL:
+        failures.append(f"DP vs one process {r0['dp_vs_one_process']}")
+    if not r0["fsdp_vs_dp"] < PARALLEL_UPDATE_REL_TOL:
+        failures.append(f"FSDP vs DP {r0['fsdp_vs_dp']}")
+    if any(res["fsdp_held"]["packed_kept"] or res["fsdp_held"]["elements"]
+           >= res["fsdp_held"]["whole"] for res in ranks):
+        failures.append("FSDP state not sharded")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        failures.append(f"Adam losses {losses}")
+    sp = r0["spatial"]
+    if not (sp["finite"] and sp["interior_max_rel"] < PARALLEL_SPATIAL_REL_TOL):
+        failures.append(f"spatial {sp}")
+    tp, pp = r0["tp"], r0["pp"]
+    if not (tp["float64_mean_abs"]
+            <= PARALLEL_TP_FLOAT64_RATIO * tp["resblock_route_float64_mean_abs"]
+            and tp["step_vs_one_process"] < PARALLEL_MP_UPDATE_REL_TOL):
+        failures.append(f"tp {tp}")
+    if not (pp["forward_max_abs"] < ROUTE_MAX_ABS_TOL
+            and pp["forward_mean_abs"] < ROUTE_MEAN_ABS_TOL
+            and pp["step_vs_one_process"] < PARALLEL_MP_UPDATE_REL_TOL):
+        failures.append(f"pp {pp}")
+    if failures:
+        raise AssertionError("parallel layer: " + "; ".join(failures))
+
+
+def io_stderr(run):
+    """What ``run()`` writes to stderr before it exits (argparse's error)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        try:
+            run()
+        except SystemExit:
+            pass
+    return buf.getvalue()
+
+
 def main(work):
     from simplesr_tpu_torch.data.png import read_img, read_png, write_png
     from simplesr_tpu_torch.eval.evaluation import (_TILE_BATCH, _TILE_OVERLAP, _TILE_PATCH,
@@ -2585,6 +3091,7 @@ def main(work):
     serving_phase(dev, work, launches_by_path, smi_line, tiled_png, tiled_lr, gallery_lr,
                   lr_batch, tiled_batches)
     profile_surface = training_surface_phase(dev, work, gen, launches_by_path, smi_line)
+    parallel_phase(dev, work, launches_by_path, smi_line)
     # the profilers of phases 7 to 10 and 12 last, after every timing
     for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan,
                     profile_surface):
@@ -2641,6 +3148,12 @@ def run():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of phase 13, started by the phase
+        r_, n_, port_, dir_ = sys.argv[2:6]
+        sys.exit(parallel_rank(int(r_), int(n_), int(port_), Path(dir_)))
+    if sys.argv[1:2] == ["--gloo-probe"]:  # probe (a) of phase 13, started by the phase
+        op_, r_, port_ = sys.argv[2:5]
+        sys.exit(gloo_probe_rank(op_, int(r_), int(port_)))
     try:
         code = run()
     except Exception:  # report any failure, never the ok line

@@ -6,7 +6,9 @@ be imported, else none, as the JAX package does without tensorboardX),
 data-dir checks, test-originals matching, config mutation for sweeps, and
 ``from_yaml``, which builds the config, the pipeline and, for training, the
 SRModel on ``device`` (in GAN mode when the YAML has a ``discriminator``
-section).
+section). Under a process group of several ranks every rank takes rank 0's
+save directory, and only rank 0 writes the ``latest`` symlink and
+TensorBoard.
 """
 
 import copy
@@ -18,10 +20,21 @@ from pathlib import Path
 
 from simplesr_tpu_torch.config import yaml_helper
 from simplesr_tpu_torch.core.device import resolve_device
+from simplesr_tpu_torch.parallel import comm
 from simplesr_tpu_torch.utils import logger
 
 log = logging.getLogger(logger.LIB_LOGGER).getChild(__name__)
 AVAILABLE_OPERATIONS = ["training", "evaluation", "inference", "experiment", "testing"]
+
+
+def _rank0s(name):
+    """Rank 0's ``name`` on every rank of a process group (a run's save
+    directory is one for all its ranks)."""
+    if comm.world_size() == 1:
+        return name
+    box = [name]
+    comm.dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def _make_summary_writer(log_dir):
@@ -61,6 +74,7 @@ class ConfigUtil:
             self.save_dir_name = str(time.time())
         else:
             self.save_dir_name = datetime.now().strftime("%Y%m%d-%H%M%S")
+        self.save_dir_name = _rank0s(self.save_dir_name)
 
         self.train_data_paths = train_data_paths
         if self.train_data_paths and not isinstance(self.train_data_paths, list):
@@ -162,12 +176,12 @@ class ConfigUtil:
                         resume=None):
         """Training-mode config. The arguments are the JAX package's, so that
         its YAML files load unchanged; ``paired_train`` (``SRModel``'s
-        paired mode) and ``distill`` (a frozen teacher's term,
-        train/distill.py) reach ``SRModel.init``, which raises
-        ``NotImplementedError`` for those the port has not ported yet
-        (``data_parallel`` on more than one device, ``fsdp``,
-        ``tensor_parallel``, ``pipeline_parallel``), each naming its
-        ROADMAP.md item. ``async_checkpointing`` changes nothing: the port
+        paired mode), ``distill`` (a frozen teacher's term,
+        train/distill.py) and the parallel options (``data_parallel``,
+        ``fsdp``, ``tensor_parallel``, ``pipeline_parallel``,
+        ``pipeline_microbatches``) reach ``SRModel.init``, which builds the
+        mesh over the process group's ranks (one process per card, under
+        torchrun). ``async_checkpointing`` changes nothing: the port
         writes its checkpoints at once. ``resume=True`` or ``"latest"``
         reuses the latest run's save dir and continues it from its resume
         point (see run_training); a run name (or a path) under
@@ -325,9 +339,11 @@ class ConfigUtil:
         self.result_logfile = os.path.join(self.save_path, "result_logfile")
         self.final_result = os.path.join(self.save_path, "result")
         self.config_logfile = os.path.join(self.save_path, "config_logfile")
+        rank0 = comm.world_rank() == 0
         if not self.dry_run:
             os.makedirs(self.save_path, exist_ok=True)
-            self._update_latest_symlink()
+            if rank0:
+                self._update_latest_symlink()
         self._add_save_dir("pics", "pic_dir")
 
         if self.operation not in ("testing", "evaluation", "inference"):
@@ -340,7 +356,7 @@ class ConfigUtil:
             self._add_save_dir(os.path.join("logs", "train", "batch"), "log_dir_train_batch")
             self._add_save_dir(os.path.join("logs", "val", "epoch"), "log_dir_val_epoch")
             self._add_save_dir(os.path.join("logs", "val", "batch"), "log_dir_val_batch")
-            if not self.dry_run:
+            if not self.dry_run and rank0:  # TensorBoard is rank 0's
                 self.epoch_train_summary_writer = _make_summary_writer(self.log_dir_train_epoch)
                 self.batch_train_summary_writer = _make_summary_writer(self.log_dir_train_batch)
                 self.epoch_validation_summary_writer = _make_summary_writer(self.log_dir_val_epoch)

@@ -34,9 +34,10 @@ _TILE_BATCH = 8
 
 
 def check_tile_threshold(tile_threshold):
-    """Refuse a tile threshold other than the route's own: ``tile_threshold``
-    stays in the serving signatures for the JAX package's sake, but
-    ``_upscale`` tiles over ``_TILE_MIN_HW`` whatever it says."""
+    """Refuse a tile threshold other than the route's own, for entry points
+    that go through ``_upscale`` alone (``upscale_files``): it tiles over
+    ``_TILE_MIN_HW`` whatever the argument says. ``SREngine`` routes by its
+    threshold itself."""
     if tile_threshold != _TILE_MIN_HW:
         raise ValueError(f"tile_threshold must be {_TILE_MIN_HW}, the tiled route's fixed "
                          f"threshold; got {tile_threshold}")

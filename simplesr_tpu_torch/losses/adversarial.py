@@ -8,11 +8,15 @@ losses.
   * DiscriminatorLoss: BCE(sr_labels, D(sr)) + BCE(hr_labels, D(hr)) on
     probabilities, the labels possibly smoothed.
   * RaDiscriminatorLoss: the relativistic mirror on logits, averaged.
+
+The relativistic means are the global batch's under data parallelism
+(``parallel.comm.batch_mean``), as in the JAX package's one SPMD program.
 """
 
 import torch
 
 from simplesr_tpu_torch.losses.base import Loss, bce_from_logits, bce_from_probs
+from simplesr_tpu_torch.parallel.comm import batch_mean
 
 
 class AdversarialLoss(Loss):
@@ -30,8 +34,8 @@ class RaAdversarialLoss(Loss):
     name = "ra_adversarial_loss"
 
     def __call__(self, hr_batch, sr_batch, hr_critic, sr_critic):
-        real = bce_from_logits(torch.zeros_like(hr_critic), hr_critic - sr_critic.mean())
-        fake = bce_from_logits(torch.ones_like(sr_critic), sr_critic - hr_critic.mean())
+        real = bce_from_logits(torch.zeros_like(hr_critic), hr_critic - batch_mean(sr_critic))
+        fake = bce_from_logits(torch.ones_like(sr_critic), sr_critic - batch_mean(hr_critic))
         return self._package((real + fake) / 2.0)
 
 
@@ -52,6 +56,6 @@ class RaDiscriminatorLoss(Loss):
     name = "ra_discriminator_loss"
 
     def __call__(self, sr_critic, hr_critic, sr_labels, hr_labels):
-        real = bce_from_logits(hr_labels, hr_critic - sr_critic.mean())
-        fake = bce_from_logits(sr_labels, sr_critic - hr_critic.mean())
+        real = bce_from_logits(hr_labels, hr_critic - batch_mean(sr_critic))
+        fake = bce_from_logits(sr_labels, sr_critic - batch_mean(hr_critic))
         return self._package((real + fake) / 2.0)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from simplesr_tpu_torch.core.dtypes import cudnn_tf32
 from simplesr_tpu_torch.ops.shuffle import depth_to_space_nchw
+from simplesr_tpu_torch.parallel.comm import batch_moments
 
 
 def same_padding(size, kernel_size, stride):
@@ -134,10 +135,11 @@ class ConvLayer(nn.Module):
 
 def batch_norm(bn, y):
     """flax's BatchNorm of NCHW float32 ``y`` with ``bn``'s parameters and
-    running statistics, which training mode updates in place."""
+    running statistics, which training mode updates in place. Under data
+    parallelism the batch statistics are the global batch's
+    (``parallel.comm.batch_moments``)."""
     if bn.training:
-        mean = y.mean((0, 2, 3))
-        var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mean, var = batch_moments(y, (0, 2, 3))
         keep = 1.0 - bn.momentum  # Keras / flax momentum
         with torch.no_grad():
             bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)

@@ -16,7 +16,10 @@ Design:
     polyphase tail), optionally with the x8 self-ensemble or the paired
     trunk;
   * images larger than the tile threshold go one by one through the
-    overlap-tiled route, as in offline upscaling.
+    overlap-tiled route, as in offline upscaling;
+  * with ``--mesh-dp N`` (``SREngine(mesh=...)``) one process holds a
+    replica of the model on each of N devices and splits each batch
+    across them.
 
 Protocol (length-prefixed frames over one persistent connection; send any
 number of requests, close to end the session):
@@ -49,9 +52,8 @@ import torch
 
 from simplesr_tpu_torch.core.device import resolve_device
 from simplesr_tpu_torch.data.png import as_rgb, decode_png, encode_png
-from simplesr_tpu_torch.eval.evaluation import (_as_predictor, _upscale,
-                                                check_tile_threshold)
-from simplesr_tpu_torch.train.sr_model import PARALLEL_ITEM
+from simplesr_tpu_torch.eval.evaluation import _as_predictor, _upscale
+from simplesr_tpu_torch.parallel.mesh import LocalMesh, make_mesh
 
 _LEN = struct.Struct(">Q")
 
@@ -127,9 +129,10 @@ class _Request:
         self.error = None
 
 
-def _bucket(n):
-    """The batch size ``n`` requests are padded to: the next power of two."""
-    target = 1
+def _bucket(n, smallest=1):
+    """The batch size ``n`` requests are padded to: ``smallest`` doubled
+    until it holds them (the next power of two by default)."""
+    target = smallest
     while target < n:
         target *= 2
     return target
@@ -141,23 +144,32 @@ class SREngine:
     ``upscale`` takes and returns float32, ``upscale_u8`` uint8; the uint8
     route moves 1 byte per channel between host and device and converts on
     the device. ``fast``, ``ensemble`` and ``paired`` pick the serving form
-    as ``eval.evaluation._as_predictor`` does. ``tile_threshold`` must be
-    1000, the tiled route's own (``eval.evaluation.check_tile_threshold``).
-    Call ``close`` when done.
+    as ``eval.evaluation._as_predictor`` does. A request whose shorter side
+    is over ``tile_threshold`` goes through the tiled route (which tiles an
+    image whose shorter side is over 1000 px); any other is batched whole.
+
+    ``mesh`` (a ``LocalMesh``, ``parallel.make_mesh(devices=[...])``) serves
+    one replica of the model on each device along its first axis, as the
+    JAX package shards the batch over that axis: a batch splits into equal
+    parts, one a replica, and is at least that many requests (padded). The
+    tiled route's batches of tiles split the same way. ``device`` is then
+    the mesh's first device. Call ``close`` when done.
     """
 
     def __init__(self, model_path, scale, max_batch=8, max_wait_ms=5,
                  tile_threshold=1000, fast=True, ensemble=False, paired=0, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"serving over a device mesh is not ported yet: {PARALLEL_ITEM}")
-        check_tile_threshold(tile_threshold)
-        self.device = resolve_device(device)
-        self._predict = _as_predictor(model_path, fast=fast, ensemble=ensemble, paired=paired,
-                                      device=self.device)
+        if mesh is not None and not isinstance(mesh, LocalMesh):
+            raise TypeError("mesh must be a LocalMesh of this process's devices "
+                            f"(parallel.make_mesh(devices=[...])), got {type(mesh).__name__}")
+        replicas = [resolve_device(device)] if mesh is None else \
+            [resolve_device(d) for d in mesh.devices.reshape(mesh.devices.shape[0], -1)[:, 0]]
+        self.device = replicas[0]
+        self._replicas = [(d, _as_predictor(model_path, fast=fast, ensemble=ensemble,
+                                            paired=paired, device=d)) for d in replicas]
+        self._min_batch = len(replicas)
         self.scale = int(scale)
-        self.max_batch = max(int(max_batch), 1)
+        self.max_batch = max(int(max_batch), self._min_batch)
         self.max_wait_s = max_wait_ms / 1000.0
         self.tile_threshold = tile_threshold
         self._queue = queue.SimpleQueue()
@@ -184,10 +196,25 @@ class SREngine:
             raise req.error
         return req.result
 
+    def _predict(self, x):
+        """The model on a batch on ``self.device``: whole on one replica, or
+        split into equal parts (the last shorter when the batch does not
+        divide), one a replica, run on every device before any is waited
+        for, and gathered back."""
+        if len(self._replicas) == 1:
+            return self._replicas[0][1](x)
+        parts = x.chunk(len(self._replicas))
+        outs = [predict(part.to(d)) for part, (d, predict) in zip(parts, self._replicas)]
+        return torch.cat([o.to(x.device) for o in outs])
+
     def batch_sizes(self):
-        """The batch sizes ``_run`` can give the model: powers of two up to
-        the first at or above ``max_batch``."""
-        return [1 << i for i in range(_bucket(self.max_batch).bit_length())]
+        """The batch sizes ``_run`` can give the model: the mesh's replica
+        count (1 without a mesh) doubled up to the first at or above
+        ``max_batch``."""
+        sizes = [self._min_batch]
+        while sizes[-1] < self.max_batch:
+            sizes.append(sizes[-1] * 2)
+        return sizes
 
     def warmup(self, shapes=((64, 64), (128, 128)), u8=None):
         """Run every batch size of ``batch_sizes`` once for each LR (H, W)
@@ -271,7 +298,7 @@ class SREngine:
                         outs.append(sr.cpu().numpy())
                 else:
                     stacked = np.stack([r.img for r in batch])
-                    pad = _bucket(len(batch)) - len(batch)
+                    pad = _bucket(len(batch), self._min_batch) - len(batch)
                     if pad:
                         stacked = np.concatenate([stacked, np.repeat(stacked[:1], pad, 0)])
                     outs = self._forward(stacked)[:len(batch)]
@@ -436,7 +463,7 @@ def main(argv=None):
     p.add_argument("--warm", metavar="HxW[,HxW...]",
                    help="run these LR shape buckets before serving (e.g. 128x128,256x256)")
     p.add_argument("--mesh-dp", type=int, metavar="N",
-                   help="shard request batches over N devices (not ported yet)")
+                   help="shard request batches over N devices, one model replica each")
     p.add_argument("--ensemble", action="store_true",
                    help="serve through the x8 geometric self-ensemble (~8x the compute)")
     p.add_argument("--paired", type=int, default=0, metavar="W",
@@ -472,11 +499,19 @@ def main(argv=None):
     if not args.model or not (args.socket or args.port):
         p.error("server mode needs --model and --socket/--port")
     warm = parse_warm(p, args.warm)
-    if args.mesh_dp is not None:
-        p.error(f"--mesh-dp: multi-device serving is not ported yet ({PARALLEL_ITEM})")
     if args.paired and args.paired < 2:
         p.error(f"--paired must be >= 2, got {args.paired}")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh_dp is not None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())] \
+            if device.type == "cuda" else [device]
+        if args.mesh_dp < 1:
+            p.error(f"--mesh-dp must be >= 1, got {args.mesh_dp}")
+        if args.mesh_dp > len(devices):  # don't silently serve at lower parallelism
+            p.error(f"--mesh-dp {args.mesh_dp} but only {len(devices)} devices"
+                    " are available")
+        mesh = make_mesh(devices=devices[:args.mesh_dp])
     print(f"serving {args.model} x{args.scale} on "
           f"{args.socket or f'127.0.0.1:{args.port}'} ({device})", flush=True)
     # SIGTERM (systemd, docker stop) runs the same clean-up as Ctrl-C:
@@ -484,7 +519,8 @@ def main(argv=None):
     stop = _install_stop_handler()
     serve(args.model, args.scale, socket_path=args.socket, tcp_port=args.port,
           max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, warm_shapes=warm,
-          ensemble=args.ensemble, paired=args.paired, device=device, stop_event=stop)
+          ensemble=args.ensemble, paired=args.paired, mesh=mesh, device=device,
+          stop_event=stop)
     return 0
 
 

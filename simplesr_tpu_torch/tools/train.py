@@ -2,13 +2,18 @@
 
     python -m simplesr_tpu_torch.tools.train <config.yaml> [--resume]
         [--profile-dir D] [--device cpu]
+    torchrun --nproc-per-node N -m simplesr_tpu_torch.tools.train <config.yaml>
 
 As simplesr_tpu.tools.train: ``--resume`` continues the latest run under the
 config's results tree (it sets ``general.resume: latest`` unless the YAML
 names a run); a run preempted by SIGTERM saves a resume point and exits 75
 (EX_TEMPFAIL), a finished one 0. ``--profile-dir`` writes a
 ``torch.profiler`` trace of the epoch loop there. The run is on the card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given. Under torchrun each rank initialises the
+process group from torchrun's environment (NCCL on the cards, gloo with
+``--device cpu``) and trains on ``cuda:LOCAL_RANK``; the YAML's
+``data_parallel``, ``fsdp``, ``tensor_parallel`` and ``pipeline_parallel``
+lay the ranks out.
 """
 
 import argparse
@@ -28,9 +33,14 @@ def main(argv=None):
 
     from simplesr_tpu_torch.config import ConfigUtil, yaml_helper
     from simplesr_tpu_torch.core.device import resolve_device
+    from simplesr_tpu_torch.parallel.mesh import initialize_multihost, rank_device
     from simplesr_tpu_torch.train import run_training
 
-    device = resolve_device(args.device)
+    device = resolve_device(rank_device(args.device))
+    if device.type == "cuda":
+        import torch
+        torch.cuda.set_device(device)
+    initialize_multihost(device=device)
     conf_yaml = yaml_helper.load_yaml(args.config)
     operation = conf_yaml.get("general", {}).get("operation")
     if operation != "training":

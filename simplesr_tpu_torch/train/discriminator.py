@@ -20,6 +20,7 @@ from simplesr_tpu_torch.core.device import resolve_device
 from simplesr_tpu_torch.core.dtypes import dtype_from_name
 from simplesr_tpu_torch.losses import DiscriminatorLoss, RaDiscriminatorLoss
 from simplesr_tpu_torch.models.discriminator import Discriminator as DiscriminatorNet
+from simplesr_tpu_torch.parallel.comm import global_rand
 from simplesr_tpu_torch.train.convert import from_flax_variables, to_flax_variables
 from simplesr_tpu_torch.train.metrics import MetricBundle
 
@@ -124,11 +125,12 @@ class Discriminator:
 
     def get_labels(self, sr_critic, hr_critic, generator=None):
         """Target labels, smoothed when asked, drawn on the CPU from
-        ``generator`` and moved to the critics' device."""
+        ``generator`` and moved to the critics' device; under data
+        parallelism each rank's slice of one draw over the global batch."""
         if not self._label_smoothing:
             return torch.zeros_like(sr_critic), torch.ones_like(hr_critic)
-        noise_hr = torch.rand(hr_critic.shape, generator=generator) * 0.5
-        noise_sr = torch.rand(sr_critic.shape, generator=generator) * self._smoothing_offset
+        noise_hr = global_rand(hr_critic.shape, generator) * 0.5
+        noise_sr = global_rand(sr_critic.shape, generator) * self._smoothing_offset
         sr_labels = noise_sr.to(sr_critic.device)
         hr_labels = (1.0 - self._smoothing_offset + noise_hr).to(hr_critic.device)
         return sr_labels, hr_labels

@@ -217,6 +217,9 @@ class MultiSteps:
         self.every_k = int(every_k)
         self.mini_step = 0
         self.acc = None
+        # data-parallel training: the accumulated (local) mean -> the
+        # gradients ``inner`` applies (reduced over the ranks)
+        self.reduce = None
 
     @property
     def count(self):
@@ -225,12 +228,12 @@ class MultiSteps:
     @torch.no_grad()
     def apply(self, params, grads):
         if self.acc is None:
-            self.acc = [torch.zeros_like(p) for p in params]
+            self.acc = [torch.zeros_like(g) for g in grads]
         delta = torch._foreach_sub(list(grads), self.acc)
         torch._foreach_div_(delta, self.mini_step + 1)
         torch._foreach_add_(self.acc, delta)
         if self.mini_step == self.every_k - 1:
-            self.inner.apply(params, self.acc)
+            self.inner.apply(params, self.acc if self.reduce is None else self.reduce(self.acc))
             torch._foreach_zero_(self.acc)
         self.mini_step = (self.mini_step + 1) % self.every_k
 
@@ -259,6 +262,8 @@ class SkipNonFinite:
         self.max_consecutive_errors = max_consecutive_errors
         self.notfinite_count = 0
         self.total_notfinite = 0
+        # data-parallel training: the local verdict -> the one every rank takes
+        self.agree = None
 
     @property
     def count(self):
@@ -267,6 +272,8 @@ class SkipNonFinite:
     def apply(self, params, grads):
         """Apply ``grads`` unless they are not finite; True if applied."""
         finite = bool(torch.isfinite(torch.cat([g.reshape(-1) for g in grads])).all())
+        if self.agree is not None:
+            finite = self.agree(finite)
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.total_notfinite += not finite
         if finite or self.notfinite_count > self.max_consecutive_errors:

@@ -66,10 +66,30 @@ function, on a card whose convs tile C = 64 as they are. ``distill`` adds a
 frozen teacher's term to the generator's loss (``train/distill.py``), in
 training and in validation.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: meshes, FSDP, tensor and pipeline parallelism.
+``mesh`` (a ``DeviceMesh`` from ``parallel.make_mesh``, one process per
+rank) trains as the JAX package's SPMD program over its mesh computes. Each
+train and validation batch is the global batch, the same on every rank: it
+is trimmed to a multiple of the data axis (times ``paired_ways``), as
+``_fit_batch_to_mesh`` trims it, and each rank takes its slice
+(``local_batch_slice``). What a single SPMD program computes over the
+global batch the ranks compute together (``parallel.comm``): BatchNorm's
+batch statistics, the relativistic losses' critic means and the smoothed
+labels' draw; the gradients are averaged over the data axis (with
+``grad_accum_steps``, once per update), the NaN guard's verdict is agreed
+by every rank at each micro-step, and the metrics are averaged too, so
+that every rank records, early-stops and resumes alike. Only rank 0 writes model files,
+checkpoints, the resume sidecar and TensorBoard, and the others wait for it.
+``fsdp`` shards the generator's parameters, optimizer moments, gradient
+accumulator and EMA shadow over the data axis (``parallel.fsdp``, ZeRO-3):
+its gradients are reduce-scattered into the shards at every step, also at
+every micro-step of an accumulation; the discriminator stays replicated. ``tensor_parallel`` and ``pipeline_parallel`` run the
+generator's training forward split over the mesh's "model" or "stage" axis
+(``parallel.tensor``, ``parallel.pipeline``), on the standard parameters
+held whole on every rank; validation and ``generate`` run the whole
+forward on every rank.
 """
 
+import contextlib
 import json
 import logging
 import os
@@ -80,22 +100,19 @@ import numpy as np
 import torch
 
 from simplesr_tpu_torch.core.device import resolve_device
+from simplesr_tpu_torch.parallel import comm
 from simplesr_tpu_torch.ops import metrics as image_metrics_lib
 from simplesr_tpu_torch.train import serialization
 from simplesr_tpu_torch.train.early_stopping import EarlyStopping
 from simplesr_tpu_torch.train.convert import to_flax_variables
 from simplesr_tpu_torch.train.metrics import MetricBundle
-from simplesr_tpu_torch.train.optimizers import MultiSteps, SkipNonFinite, build_optimizer
+from simplesr_tpu_torch.train.optimizers import (MultiSteps, Optimizer, SkipNonFinite,
+                                                  build_optimizer)
 
 _KEEP_CHECKPOINTS = 5
 _CHECKPOINT = re.compile(r"step_(\d+)\.pt")
 
-PARALLEL_ITEM = "ROADMAP.md, Queue 1, the parallel layer"
 _VALID_LABEL_SEED = 4711  # the JAX package's validation key, folded with the iteration
-
-
-def not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported yet: {item}")
 
 
 def _check_paired(module, ways):
@@ -151,9 +168,10 @@ class SRModel:
                  paired_ways=None,
                  device="cuda"):
         """``seed`` roots the model's random stream (the discriminator's
-        smoothed labels; checkpointed); ``async_checkpointing`` (the port's
-        checkpoints are written at once) and ``pipeline_microbatches`` are
-        accepted as the JAX package takes them and change nothing. Batch
+        smoothed labels; checkpointed); ``async_checkpointing`` is accepted
+        as the JAX package takes it and changes nothing (the port's
+        checkpoints are written at once). ``mesh`` and the parallel options
+        are as the module docstring says. Batch
         metrics go to the batch writers every ``tb_batch_interval`` steps.
         The generator's and the discriminator's modules move to
         ``device``."""
@@ -181,14 +199,10 @@ class SRModel:
             raise ValueError(
                 "paired_ways is mutually exclusive with tensor_parallel/"
                 "pipeline_parallel (they re-lay-out the same trunk)")
-        unported = [
-            (mesh is not None, "training on a mesh", PARALLEL_ITEM),
-            (tensor_parallel, "tensor_parallel", PARALLEL_ITEM),
-            (pipeline_parallel, "pipeline_parallel", PARALLEL_ITEM),
-        ]
-        for unsupported, what, item in unported:
-            if unsupported:
-                raise not_ported(what, item)
+        if mesh is not None:
+            from simplesr_tpu_torch.parallel.mesh import check_rank_mesh
+            check_rank_mesh(mesh)
+        self._check_model_parallel(mesh, tensor_parallel, pipeline_parallel, fsdp)
 
         self._model_type = model_type.lower()
         self.name = model_type
@@ -231,6 +245,7 @@ class SRModel:
             self._discriminator = discriminator.to(self._device)
             self._d_params = list(discriminator.model().parameters())
             self._d_optimizer = optimizer(discriminator_optimizer, discriminator_optimizer_config)
+        self._setup_mesh(mesh, fsdp, tensor_parallel, pipeline_parallel, pipeline_microbatches)
         self._paired_ways = 1 if paired_ways is None else \
             _check_paired(generator.model(), paired_ways)
         self._distill = None
@@ -274,24 +289,177 @@ class SRModel:
             self._restore_resnet_checkpoint(resnet_checkpoint)
 
     def _fresh_ema(self):
-        """The EMA shadow at the generator's parameters (None without EMA)."""
+        """The EMA shadow at the generator's parameters (their shards under
+        fsdp; None without EMA)."""
         if self._ema_decay is None:
             return None
-        return [p.detach().clone() for p in self._params]
+        return [p.detach().clone() for p in self._opt_params]
+
+    # ============================================================= the mesh
+
+    @staticmethod
+    def _check_model_parallel(mesh, tensor_parallel, pipeline_parallel, fsdp):
+        """The JAX package's refusals of a mesh without the axis that tensor
+        or pipeline parallelism splits over."""
+        from simplesr_tpu_torch.parallel.mesh import mesh_shape
+        from simplesr_tpu_torch.parallel.pipeline import STAGE_AXIS
+        from simplesr_tpu_torch.parallel.tensor import MODEL_AXIS
+
+        axes = mesh_shape(mesh) if mesh is not None else {}
+        if tensor_parallel and MODEL_AXIS not in axes:
+            raise ValueError(
+                "tensor_parallel=True requires a mesh with a "
+                f"'{MODEL_AXIS}' axis (e.g. make_mesh({{'data': d, 'model': t}}))")
+        if pipeline_parallel:
+            if tensor_parallel:
+                raise ValueError("pipeline_parallel and tensor_parallel are "
+                                 "mutually exclusive (stage vs channel split "
+                                 "of the same trunk)")
+            if STAGE_AXIS not in axes:
+                raise ValueError(
+                    "pipeline_parallel=True requires a mesh with a "
+                    f"'{STAGE_AXIS}' axis (e.g. make_mesh({{'data': d, 'stage': s}}))")
+        if fsdp and (tensor_parallel or pipeline_parallel):
+            raise ValueError("fsdp shards the state over the data axis; the port does not "
+                             "compose it with tensor or pipeline parallelism")
+
+    def _setup_mesh(self, mesh, fsdp, tensor_parallel, pipeline_parallel, microbatches):
+        """The data axis, the model-parallel forward, the FSDP shards and
+        the hooks that reduce gradients over the ranks."""
+        from simplesr_tpu_torch.parallel.mesh import (DATA_AXIS, axis_group, axis_index,
+                                                      axis_size)
+
+        self._mesh = mesh
+        self._dp = axis_size(mesh, DATA_AXIS)
+        self._dp_group = axis_group(mesh, DATA_AXIS) if self._dp > 1 else None
+        self._dp_index = axis_index(mesh, DATA_AXIS)
+        self._rank0 = not comm.distributed() or comm.world_rank() == 0
+        if not self._rank0:  # TensorBoard is rank 0's
+            self._epoch_train_summary_writer = self._batch_train_summary_writer = None
+            self._epoch_validation_summary_writer = self._batch_validation_summary_writer = None
+        module = self._generator.model()
+        self._mp_group, self._split, self._train_forward = None, [], None
+        if tensor_parallel or pipeline_parallel:
+            if tensor_parallel:
+                from simplesr_tpu_torch.parallel.tensor import MODEL_AXIS as axis
+                from simplesr_tpu_torch.parallel.tensor import tp_apply, tp_param_specs
+                self._train_forward = tp_apply(module, mesh)
+                specs = tp_param_specs(module)
+                self._split = [i for i, n in enumerate(self._param_names) if specs[n]]
+            else:
+                from simplesr_tpu_torch.parallel.pipeline import STAGE_AXIS as axis
+                from simplesr_tpu_torch.parallel.pipeline import pipeline_apply
+                stages = axis_size(mesh, axis)
+                self._train_forward = pipeline_apply(module, mesh, int(microbatches or stages))
+                trunk = {id(p) for p in module.trunk_parameters()}
+                self._split = [i for i, p in enumerate(self._params) if id(p) in trunk]
+            self._mp_group = axis_group(mesh, axis)
+        self._zero = None
+        if fsdp:
+            from simplesr_tpu_torch.parallel.fsdp import ZeroShards
+            self._zero = ZeroShards(module, self._param_names, self._params,
+                                    self._dp_group, self._dp, self._dp_index)
+        self._opt_params = self._zero.shards if self._zero else self._params
+        # with accumulation the ranks' gradients meet once an update; under
+        # fsdp they are reduced into the shards every micro-step instead, so
+        # that the accumulator is a shard (the JAX package's follows the
+        # parameters' shardings). The NaN guard's verdict is agreed every
+        # micro-step: deferred gradients and fsdp's shards differ by rank.
+        self._defer_reduce = self._grad_accum > 1 and mesh is not None and self._zero is None
+        for opt, reduce in ((self._optimizer, self._reduce_g),
+                            (self._d_optimizer, self._reduce_d)):
+            inner = opt if mesh is not None else None
+            while inner is not None and not isinstance(inner, Optimizer):
+                if isinstance(inner, SkipNonFinite):
+                    inner.agree = lambda finite: comm.agree(finite, None)
+                elif self._defer_reduce:
+                    inner.reduce = reduce
+                inner = inner.inner
+
+    def _reduce_g(self, grads):
+        """The generator's gradients for the optimizer: the model-parallel
+        ranks' slices summed, the data axis's mean, and under fsdp this
+        rank's shard of it (reduce-scattered)."""
+        grads = [g.contiguous() for g in grads]
+        if self._zero is not None:
+            return self._zero.reduce_shard(grads)
+        if self._mp_group is not None:
+            comm.all_reduce_many_([grads[i] for i in self._split], self._mp_group)
+        return self._data_mean(grads)
+
+    def _reduce_d(self, grads):
+        return self._data_mean([g.contiguous() for g in grads])
+
+    def _data_mean(self, tensors):
+        if self._dp > 1:
+            comm.all_reduce_many_(tensors, self._dp_group)
+            torch._foreach_div_(tensors, float(self._dp))
+        return tensors
+
+    def _reduce_metrics(self, *metric_dicts):
+        """The data axis's mean of each metric, in place (one collective)."""
+        if self._dp == 1:
+            return
+        keys = [(d, k) for d in metric_dicts if d for k in d]
+        values = torch.stack([d[k].detach().float().reshape(()) for d, k in keys])
+        self._data_mean([values])
+        for (d, k), v in zip(keys, values):
+            d[k] = v
+
+    def _local(self, batch):
+        """This rank's slice of a (fitted) global batch, on the device."""
+        from simplesr_tpu_torch.parallel.mesh import local_batch_slice
+
+        x = torch.as_tensor(batch, dtype=torch.float32)
+        if self._dp > 1:
+            x = x[local_batch_slice(x.shape[0], self._mesh)]
+        return x.to(self._device)
+
+    def _data_context(self):
+        return comm.data_parallel(self._dp_group, self._dp, self._dp_index)
+
+    @contextlib.contextmanager
+    def _whole(self):
+        """The generator's parameters whole for the block (gathered from the
+        shards under fsdp, released after)."""
+        if self._zero is None or self._zero.gathered:
+            yield
+            return
+        self._zero.gather()
+        try:
+            yield
+        finally:
+            self._zero.release()
+
+    def _wait_for_rank0(self):
+        if self._mesh is not None:
+            comm.barrier()
+
+    @property
+    def state_shardings(self):
+        """{parameter name: spec} of the generator's state under fsdp (the
+        optimizer moments and the EMA shadow follow their parameter); all
+        replicated otherwise."""
+        if self._zero is None:
+            return {n: () for n in self._param_names}
+        return dict(self._zero.specs)
+
+    @property
+    def parameter_shards(self):
+        """What this rank holds of each generator parameter (its shard under
+        fsdp, the parameter itself otherwise)."""
+        return list(self._opt_params)
 
     # ========================================================== public steps
-
-    def _batch(self, x):
-        return torch.as_tensor(x, dtype=torch.float32).to(self._device)
 
     def _image_metric_values(self, hr, sr):
         return {k: fn(hr, sr).mean() for k, fn in self._image_metrics.items()}
 
-    def _fit_train_batch(self, lr_batch, hr_batch):
-        """The train batch trimmed to the largest multiple of
-        ``paired_ways`` (None, None when it is smaller), as the JAX
-        package's ``_fit_batch_to_mesh`` trims it."""
-        n, b = self._paired_ways, lr_batch.shape[0]
+    def _fit_batch(self, lr_batch, hr_batch, train=False):
+        """The batch trimmed to the largest multiple of the data axis (times
+        ``paired_ways`` for a train batch; None, None when it is smaller),
+        as the JAX package's ``_fit_batch_to_mesh`` trims it."""
+        n, b = self._dp * (self._paired_ways if train else 1), lr_batch.shape[0]
         if b % n == 0:
             return lr_batch, hr_batch
         keep = (b // n) * n
@@ -317,23 +485,28 @@ class SRModel:
 
     def train_step(self, lr_batch, hr_batch):
         """One optimisation step: forward, losses, gradients and updates."""
-        lr_batch, hr_batch = self._fit_train_batch(lr_batch, hr_batch)
+        lr_batch, hr_batch = self._fit_batch(lr_batch, hr_batch, train=True)
         if lr_batch is None:
             return
-        lr, hr = self._batch(lr_batch), self._batch(hr_batch)
+        lr, hr = self._local(lr_batch), self._local(hr_batch)
         module = self._generator.model()
         module.train()
-        sr = module(lr).float()
         d_metrics = None
-        if self._model_type == "gan":
-            g_grads, d_grads, g_metrics, d_metrics = self._gan_gradients(sr, hr, lr)
-        else:
-            loss, g_metrics = self._generator.calculate_loss(sr, hr, None, None)
-            if self._distill is not None:
-                loss = self._add_distillation(loss, g_metrics, sr, lr)
-            g_grads = torch.autograd.grad(loss, self._params)
+        with self._data_context(), self._whole():
+            sr = (self._train_forward or module)(lr).float()
+            if self._model_type == "gan":
+                g_grads, d_grads, g_metrics, d_metrics = self._gan_gradients(sr, hr, lr)
+            else:
+                loss, g_metrics = self._generator.calculate_loss(sr, hr, None, None)
+                if self._distill is not None:
+                    loss = self._add_distillation(loss, g_metrics, sr, lr)
+                g_grads = torch.autograd.grad(loss, self._params)
+        if self._mesh is not None and not self._defer_reduce:
+            g_grads = self._reduce_g(g_grads)
+            if d_metrics is not None:
+                d_grads = self._reduce_d(d_grads)
         updates = self._optimizer.count
-        self._optimizer.apply(self._params, g_grads)
+        self._optimizer.apply(self._opt_params, g_grads)
         if d_metrics is not None:
             self._d_optimizer.apply(self._d_params, d_grads)
         # as the JAX package: without accumulation the shadow moves every
@@ -343,12 +516,14 @@ class SRModel:
             self._advance_ema()
         self._step += 1
         sr = sr.detach()
-        self._generator.accumulate_metrics({k: v.detach() for k, v in g_metrics.items()},
-                                           train=True)
+        g_metrics = {k: v.detach() for k, v in g_metrics.items()}
+        d_metrics = None if d_metrics is None else {k: v.detach() for k, v in d_metrics.items()}
+        img = self._image_metric_values(hr, sr)
+        self._reduce_metrics(g_metrics, d_metrics, img)
+        self._generator.accumulate_metrics(g_metrics, train=True)
         if d_metrics is not None:
-            self._discriminator.accumulate_metrics(
-                {k: v.detach() for k, v in d_metrics.items()}, train=True)
-        for k, v in self._image_metric_values(hr, sr).items():
+            self._discriminator.accumulate_metrics(d_metrics, train=True)
+        for k, v in img.items():
             self._train_epoch_metrics.ensure(k)(v)
             self._batch_metrics.ensure(k)(v)
 
@@ -383,14 +558,18 @@ class SRModel:
 
     @torch.no_grad()
     def _advance_ema(self):
-        """shadow = decay * shadow + (1 - decay) * parameters, in float32."""
+        """shadow = decay * shadow + (1 - decay) * parameters, in float32
+        (shard by shard under fsdp)."""
         torch._foreach_mul_(self._ema, self._ema_decay)
-        torch._foreach_add_(self._ema, torch._foreach_mul(self._params, 1.0 - self._ema_decay))
+        torch._foreach_add_(self._ema,
+                            torch._foreach_mul(self._opt_params, 1.0 - self._ema_decay))
 
     def _ema_parameters(self):
+        """The EMA shadow by parameter name, whole (gathered under fsdp)."""
         if self._ema is None:
             raise ValueError("EMA weights requested but the model was built without ema_decay")
-        return dict(zip(self._param_names, self._ema))
+        ema = self._zero.full(self._ema) if self._zero else self._ema
+        return dict(zip(self._param_names, ema))
 
     def _eval_forward(self, x, ema):
         """The generator in eval mode on ``x``, with its parameters or the
@@ -404,9 +583,12 @@ class SRModel:
     def validation_step(self, lr_batch, hr_batch):
         """One validation pass, in eval mode (on the EMA shadow with
         ``ema_eval``)."""
-        lr, hr = self._batch(lr_batch), self._batch(hr_batch)
+        lr_batch, hr_batch = self._fit_batch(lr_batch, hr_batch)
+        if lr_batch is None:
+            return
+        lr, hr = self._local(lr_batch), self._local(hr_batch)
         d_metrics = None
-        with torch.no_grad():
+        with torch.no_grad(), self._data_context(), self._whole():
             sr = self._eval_forward(lr, self._ema_eval).float()
             sr_critic = hr_critic = None
             if self._model_type == "gan":
@@ -420,6 +602,7 @@ class SRModel:
             if self._distill is not None:
                 self._add_distillation(g_loss, g_metrics, sr, lr)
             img = self._image_metric_values(hr, sr)
+        self._reduce_metrics(g_metrics, d_metrics, img)
         self._generator.accumulate_metrics(g_metrics, train=False)
         if d_metrics is not None:
             self._discriminator.accumulate_metrics(d_metrics, train=False)
@@ -430,11 +613,12 @@ class SRModel:
     def generate(self, lr_batch, ema=False):
         """SR with the current generator parameters (or, ``ema=True``, the
         EMA shadow), in eval mode."""
-        if not ema:
-            return self._generator.generate(lr_batch)
-        x = torch.as_tensor(lr_batch, dtype=torch.float32).to(self._device)
-        with torch.inference_mode():
-            return self._eval_forward(x, ema=True)
+        with self._whole():
+            if not ema:
+                return self._generator.generate(lr_batch)
+            x = torch.as_tensor(lr_batch, dtype=torch.float32).to(self._device)
+            with torch.inference_mode():
+                return self._eval_forward(x, ema=True)
 
     def test_and_plot(self, lr_batch, save_dir, step, hr_batch=None, file_path=None):
         """SR a batch and save an annotated grid of it, its bicubic
@@ -443,6 +627,8 @@ class SRModel:
         from simplesr_tpu_torch.ops.resize import resize
 
         sr_batch = self.generate(lr_batch)
+        if not self._rank0:
+            return
         fname = f"{str(self._epochs).zfill(5)}_{str(step).zfill(3)}"
         lr = torch.as_tensor(lr_batch, dtype=torch.float32)
         kwargs = {
@@ -513,8 +699,11 @@ class SRModel:
 
     def after_training(self):
         """Restore the best checkpoint and save the ``_best`` model, and the
-        ``_best_ema`` one with EMA."""
+        ``_best_ema`` one with EMA. Under fsdp the generator stays whole
+        afterwards, for the evaluation that follows training."""
         self._restore_latest_checkpoint()
+        if self._zero is not None:
+            self._zero.gather()
         self.save_model(self._model_dir, postfix="best")
         if self._ema is not None:
             self.save_model(self._model_dir, postfix="best_ema", ema=True)
@@ -528,13 +717,16 @@ class SRModel:
         if postfix is None:
             postfix = self._epochs
         module = self._generator.model()
-        state = module.state_dict()
-        if ema:
-            state.update(self._ema_parameters())
-        path = os.path.join(save_path,
-                            f"{self._model_type}_gen_{postfix}{serialization.MODEL_EXT}")
-        serialization.save_model(self._generator.module_config(),
-                                 to_flax_variables(state), path)
+        with self._whole():
+            state = module.state_dict()
+            if ema:
+                state.update(self._ema_parameters())
+            path = os.path.join(save_path,
+                                f"{self._model_type}_gen_{postfix}{serialization.MODEL_EXT}")
+            if self._rank0:
+                serialization.save_model(self._generator.module_config(),
+                                         to_flax_variables(state), path)
+        self._wait_for_rank0()
         return path
 
     # ================================================ preemption and resume
@@ -561,6 +753,9 @@ class SRModel:
         def _floats(history):
             return {k: [float(v) for v in vs] for k, vs in history.items()}
 
+        if not self._rank0:
+            self._wait_for_rank0()
+            return
         meta = {
             "completed_epochs": int(completed_epochs),
             "iterations": int(self._iterations),
@@ -575,6 +770,7 @@ class SRModel:
         with open(tmp, "w") as f:
             json.dump(meta, f)
         os.replace(tmp, path)  # readers never see a partial file
+        self._wait_for_rank0()
 
     def _read_resume_meta(self):
         try:
@@ -626,25 +822,59 @@ class SRModel:
         """Write the state as ``<directory>/step_<step>.pt`` (the best-state
         directory by default) and keep the newest ``keep``."""
         directory = directory or self._ckpt_dir
-        os.makedirs(directory, exist_ok=True)
+        with self._whole():
+            params = _to_cpu(self._generator.model().state_dict())
         state = {
             "step": self._step,
             "best_metric": self._best_metric,
-            "params": _to_cpu(self._generator.model().state_dict()),
-            "optimizer": _to_cpu(self._optimizer.state_dict()),
+            "params": params,
+            "optimizer": _to_cpu(self._whole_optimizer_state(self._optimizer, self._reduce_g)),
             "optimizer_structure": self._optimizer.structure(),
-            "ema": _to_cpu(self._ema),
+            "ema": _to_cpu(self._zero.full(self._ema) if self._zero and self._ema else self._ema),
             "rng": self._rng.get_state(),
         }
         if self._model_type == "gan":
             state["d_params"] = _to_cpu(self._discriminator.model().state_dict())
-            state["d_optimizer"] = _to_cpu(self._d_optimizer.state_dict())
-        path = os.path.join(directory, f"step_{self._step}.pt")
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save(state, tmp)
-        os.replace(tmp, path)  # readers never see a partial file
-        for step in self._checkpoint_steps(directory)[:-keep]:
-            os.remove(os.path.join(directory, f"step_{step}.pt"))
+            state["d_optimizer"] = _to_cpu(
+                self._whole_optimizer_state(self._d_optimizer, self._reduce_d))
+        if self._rank0:
+            os.makedirs(directory, exist_ok=True)
+            path = os.path.join(directory, f"step_{self._step}.pt")
+            tmp = f"{path}.tmp{os.getpid()}"
+            torch.save(state, tmp)
+            os.replace(tmp, path)  # readers never see a partial file
+            for step in self._checkpoint_steps(directory)[:-keep]:
+                os.remove(os.path.join(directory, f"step_{step}.pt"))
+        self._wait_for_rank0()
+
+    def _whole_optimizer_state(self, optimizer, reduce):
+        """An optimizer's state as one device would hold it: the moments
+        and a gradient accumulator whole (gathered under fsdp), the
+        accumulator reduced over the ranks where each rank holds its own
+        running mean."""
+        state = optimizer.state_dict()
+        if self._mesh is None:
+            return state
+        zero = self._zero if optimizer is self._optimizer else None
+        for node in _walk(state):
+            if "slots" in node and zero is not None:
+                node["slots"] = {k: zero.full(v) for k, v in node["slots"].items()}
+            if node.get("acc") is not None:
+                acc = reduce([t.clone() for t in node["acc"]]) if self._defer_reduce \
+                    else node["acc"]
+                node["acc"] = zero.full(acc) if zero is not None else acc
+        return state
+
+    def _shard_optimizer_state(self, state):
+        """A whole optimizer state (``_whole_optimizer_state``) cut to this
+        rank's shards under fsdp."""
+        if self._zero is not None:
+            for node in _walk(state):
+                if "slots" in node:
+                    node["slots"] = {k: self._zero.shard(v) for k, v in node["slots"].items()}
+                if node.get("acc") is not None:
+                    node["acc"] = self._zero.shard(node["acc"])
+        return state
 
     def _latest(self, directory):
         steps = self._checkpoint_steps(directory)
@@ -657,15 +887,26 @@ class SRModel:
         its path."""
         return self._latest(self._ckpt_dir)
 
+    def _load_generator(self, params):
+        """The generator's whole parameters and buffers (onto the shards
+        under fsdp)."""
+        with self._whole():
+            self._generator.model().load_state_dict(params)
+            if self._zero is not None:
+                self._zero.reshard_from_module()
+                self._opt_params = self._zero.shards
+
     def _restore(self, path):
+        """A checkpoint, read by every rank."""
         state = torch.load(path, map_location=self._device, weights_only=True)
-        self._generator.model().load_state_dict(state["params"])
-        self._optimizer.load_state_dict(state["optimizer"])
+        self._load_generator(state["params"])
+        self._optimizer.load_state_dict(self._shard_optimizer_state(state["optimizer"]))
         self._step = int(state["step"])
         self._best_metric = float(state["best_metric"])
         self._rng.set_state(state["rng"].cpu())
         if self._ema is not None:
-            self._ema = [t.clone() for t in state["ema"]]
+            ema = [t.clone() for t in state["ema"]]
+            self._ema = self._zero.shard(ema) if self._zero else ema
         if self._model_type == "gan":
             self._discriminator.model().load_state_dict(state["d_params"])
             self._d_optimizer.load_state_dict(state["d_optimizer"])
@@ -688,12 +929,12 @@ class SRModel:
         if step is None:
             raise ValueError(f"no checkpoint found in {checkpoint_dir}")
         state = torch.load(path, map_location=self._device, weights_only=True)
-        self._generator.model().load_state_dict(state["params"])
+        self._load_generator(state["params"])
         # the JAX package restores the whole state against one template, so
         # its optimizer state also stays behind when EMA is on in one run only
         if state.get("optimizer_structure") == self._optimizer.structure() and \
                 (state.get("ema") is None) == (self._ema is None):
-            self._optimizer.load_state_dict(state["optimizer"])
+            self._optimizer.load_state_dict(self._shard_optimizer_state(state["optimizer"]))
         else:
             logging.getLogger("simple_sr").warning(
                 "resnet checkpoint optimizer state does not match this run's optimizer; "
@@ -859,26 +1100,49 @@ class SRModel:
              discriminator_optimizer_config=None, image_metrics=None, device="cuda"):
         """The model of a ConfigUtil: its type from the discriminator, its
         early stopping, writers and directories, ``paired_train`` and
-        ``distill`` from the config. What the port has not ported raises
-        ``NotImplementedError`` with its ROADMAP.md item: more than one
-        device under ``data_parallel``, ``fsdp``, ``tensor_parallel`` and
-        ``pipeline_parallel``."""
+        ``distill`` from the config, and its mesh, as the JAX package builds
+        it over the visible devices, here the process group's ranks:
+        ``pipeline_parallel: s`` a data x stage mesh, ``tensor_parallel: t``
+        a data x model one, ``data_parallel`` or ``fsdp`` a data mesh when
+        there is more than one rank. ``fsdp`` with one rank warns and trains
+        replicated. A parallel option with more than one card visible to a
+        world of one process raises: the port runs one process per card
+        (torchrun)."""
+        from simplesr_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+
         device = resolve_device(device)
+        fsdp = bool(getattr(config, "fsdp", False))
         tp = int(getattr(config, "tensor_parallel", 0) or 0)
         pp = int(getattr(config, "pipeline_parallel", 0) or 0)
         if tp > 1 and pp > 1:
             raise ValueError("tensor_parallel and pipeline_parallel are mutually exclusive")
-        multi_device = device.type == "cuda" and torch.cuda.device_count() > 1
-        unported = [
-            (getattr(config, "data_parallel", False) and multi_device,
-             "data_parallel over more than one device", PARALLEL_ITEM),
-            (getattr(config, "fsdp", False), "fsdp", PARALLEL_ITEM),
-            (tp > 1, "tensor_parallel", PARALLEL_ITEM),
-            (pp > 1, "pipeline_parallel", PARALLEL_ITEM),
-        ]
-        for unsupported, what, item in unported:
-            if unsupported:
-                raise not_ported(what, item)
+        world = comm.world_size()
+        parallel = getattr(config, "data_parallel", False) or fsdp or tp > 1 or pp > 1
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        if parallel and world == 1 and cards > 1:
+            raise ValueError(
+                f"{cards} CUDA devices are visible to one process: the port trains on one "
+                "card per process; run torchrun --nproc-per-node "
+                f"{cards} -m simplesr_tpu_torch.tools.train <config.yaml>")
+        mesh = None
+        for size, axis, what in ((pp, "stage", "pipeline_parallel"),
+                                 (tp, "model", "tensor_parallel")):
+            if size > 1:
+                if world % size != 0:
+                    raise ValueError(f"{what}={size} does not divide the {world} visible "
+                                     "devices")
+                mesh = make_mesh({DATA_AXIS: world // size, axis: size})
+                break
+        else:
+            if (getattr(config, "data_parallel", False) or fsdp) and world > 1:
+                mesh = make_mesh()
+        if fsdp and mesh is None:
+            # the memory budget the config planned for would be wrong
+            # without a trace
+            logging.getLogger("simple_sr").warning(
+                "fsdp: true requested but only one device is visible — "
+                "training with fully replicated state (no sharding)")
+            fsdp = False
         return SRModel(
             model_type="resnet" if discriminator is None else "gan", generator=generator,
             generator_optimizer=generator_optimizer,
@@ -893,11 +1157,21 @@ class SRModel:
             grad_accum_steps=getattr(config, "grad_accum_steps", None),
             distill=getattr(config, "distill", None),
             paired_ways=getattr(config, "paired_train", None),
+            mesh=mesh, fsdp=fsdp, tensor_parallel=tp > 1, pipeline_parallel=pp > 1,
+            pipeline_microbatches=getattr(config, "pipeline_microbatches", None),
             epoch_train_summary_writer=config.epoch_train_summary_writer,
             batch_train_summary_writer=config.batch_train_summary_writer,
             epoch_validation_summary_writer=config.epoch_validation_summary_writer,
             batch_validation_summary_writer=config.batch_validation_summary_writer,
             config=config, device=device)
+
+
+def _walk(tree):
+    """The dicts of a nest of dicts (an optimizer's state and its wrappers')."""
+    if isinstance(tree, dict):
+        yield tree
+        for v in tree.values():
+            yield from _walk(v)
 
 
 def _to_cpu(tree):

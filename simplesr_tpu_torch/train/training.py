@@ -7,7 +7,9 @@ the JSON dump of the histories, and the final pass over the validation set.
 A SIGTERM during training (installed in the main thread only, and always
 restored) finishes the batch in flight, saves a resume point and returns
 None; ``resume=True`` continues from it. ``profile_dir`` captures a
-``torch.profiler`` trace of the epoch loop there.
+``torch.profiler`` trace of the epoch loop there. Under a process group of
+several ranks every rank runs the loop (the model reduces over them) and
+rank 0 writes the run's logs and JSON dump.
 """
 
 import logging
@@ -19,6 +21,7 @@ import time
 import torch
 
 from simplesr_tpu_torch.core.device import resolve_device
+from simplesr_tpu_torch.parallel import comm
 from simplesr_tpu_torch.utils import logger as logger_mod
 from simplesr_tpu_torch.utils.train_result import TrainResult
 
@@ -76,7 +79,8 @@ def run_training(config, data_pipeline, sr_model, plotting_interval=1, profile_d
     histories = sr_model.histories()
     result = TrainResult(sr_model.name, histories["train_batch"], histories["train_epoch"],
                          histories["valid_batch"], histories["valid_epoch"])
-    result.save_as_json(os.path.join(getattr(config, "save_path", "."), "json_dump"))
+    if _writes():
+        result.save_as_json(os.path.join(getattr(config, "save_path", "."), "json_dump"))
 
     log.info("calculating psnr/ssim on validation set")
     from simplesr_tpu_torch.eval import evaluation
@@ -85,6 +89,20 @@ def run_training(config, data_pipeline, sr_model, plotting_interval=1, profile_d
                                           device=device)
     log.info("done")
     return result
+
+
+def _stop(preempted):
+    """Whether to stop for a preemption: at once alone, when any rank was
+    signalled under a process group (every rank stops at the same batch)."""
+    if comm.world_size() == 1:
+        return preempted.is_set()
+    return comm.agree(preempted.is_set(), None, comm.dist.ReduceOp.MAX)
+
+
+def _writes():
+    """Whether this process writes the run's files: rank 0's does, under a
+    process group of several ranks."""
+    return comm.world_rank() == 0
 
 
 def _profiled(profile_dir, run):
@@ -123,18 +141,18 @@ def _epoch_loop(config, data_pipeline, sr_model, plotting_interval, start_epoch,
         start_epoch_t = time.perf_counter()
 
         for lr_batch, hr_batch in data_pipeline.train_batch_generator():
-            if preempted.is_set():
+            if _stop(preempted):
                 break
             sr_model.train_step(lr_batch, hr_batch)
             sr_model.after_train_batch()
 
         for lr_batch, hr_batch in data_pipeline.validation_batch_generator():
-            if preempted.is_set():
+            if _stop(preempted):
                 break
             sr_model.validation_step(lr_batch, hr_batch)
             sr_model.after_validation_batch()
 
-        if preempted.is_set():
+        if _stop(preempted):
             sr_model.save_resume_point()
             log.info(f"preempted during epoch {epoch} - resume point saved "
                      f"(step {sr_model.iterations()}); rerun with resume=True to continue")
@@ -154,7 +172,7 @@ def _epoch_loop(config, data_pipeline, sr_model, plotting_interval, start_epoch,
 def _log_perf(config, epoch, epoch_duration, sr_model):
     """Append the epoch's wall time and step count to config.perf_logfile."""
     path = getattr(config, "perf_logfile", None)
-    if not path:
+    if not path or not _writes():
         return
     try:
         with open(path, "a") as f:
@@ -178,7 +196,7 @@ def _plot_progress(config, data_pipeline, sr_model):
 
 def _log_configurations(config, data_pipeline, sr_model):
     path = getattr(config, "config_logfile", None)
-    if not path:
+    if not path or not _writes():
         return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "a+") as f:

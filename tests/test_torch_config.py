@@ -22,11 +22,10 @@ from simplesr_tpu_torch.train import SRModel
 ROOT = Path(__file__).resolve().parents[1]
 GALLERY = str(ROOT / "data/corpus/gallery")
 TRAINING = sorted((ROOT / "examples/training").glob("*.yaml"))
-# examples whose run the port builds; the others name what is not ported
+# examples whose run the port builds: every one since the parallel layer
 PORTED = {"minimal_example.yaml", "srresnet128_x4.yaml", "srresnet_denoise_x2.yaml",
           "srresnet_x4.yaml", "esrgan_x4.yaml", "srgan_x4.yaml", "srresnet_distill_x4.yaml",
-          "srresnet_x4_paired_production.yaml"}
-UNPORTED = {"rrdb_deep_scaled_x4.yaml": "ROADMAP.md"}
+          "srresnet_x4_paired_production.yaml", "rrdb_deep_scaled_x4.yaml"}
 
 
 def _general(path, results):
@@ -69,10 +68,14 @@ def test_training_config_matches_jax(path, tmp_path):
 
 
 @pytest.mark.parametrize("path", TRAINING, ids=lambda p: p.name)
-def test_from_yaml_builds_or_names_the_item(path, tmp_path, monkeypatch):
+def test_from_yaml_builds_or_names_the_item(path, tmp_path, monkeypatch, caplog):
+    """Every example builds on the CPU. One process is one device: with
+    ``fsdp`` it warns and trains replicated, as the JAX package does with one
+    device visible."""
     monkeypatch.chdir(ROOT)  # the distillation example names its teacher relative to the repo
     spec, general = _general(path, tmp_path)
     spec["general"] = dict(general, operation="training")
+    assert path.name in PORTED
     if path.name in PORTED:
         conf, pipeline, model = ConfigUtil.from_yaml(spec, device="cpu")
         assert isinstance(pipeline, DataPipeline) and isinstance(model, SRModel)
@@ -84,9 +87,9 @@ def test_from_yaml_builds_or_names_the_item(path, tmp_path, monkeypatch):
         assert pipeline.train_imgs and pipeline.crop_size == tuple(general["crop_size"])
         assert model._paired_ways == (general.get("paired_train") or 1)
         assert (model._distill is not None) == ("distill" in general)
-    else:
-        with pytest.raises(NotImplementedError, match=UNPORTED[path.name]):
-            ConfigUtil.from_yaml(spec, device="cpu")
+        assert model._mesh is None and model._zero is None
+        warned = "fsdp: true requested but only one device is visible" in caplog.text
+        assert warned == bool(general.get("fsdp"))
 
 
 def test_paired_train_raises_naming_its_item(tmp_path):

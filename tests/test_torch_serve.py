@@ -142,12 +142,21 @@ def test_bomb_bodies_are_refused_and_the_servers_go_on(daemon, model_path, pngs)
 
 @pytest.mark.parametrize("entry", ["upscale_files", "SREngine"])
 def test_a_tile_threshold_other_than_the_routes_raises(entry, model_path, pngs, tmp_path):
-    calls = {"upscale_files": lambda t: upscale_files(model_path, pngs[:1], tmp_path / "out", 2,
-                                                      tile_threshold=t, device="cpu"),
-             "SREngine": lambda t: serve.SREngine(model_path, 2, tile_threshold=t, device="cpu")}
+    """``upscale_files`` refuses a threshold other than its route's own;
+    ``SREngine`` routes by its threshold, as the JAX engine does
+    (tests/test_torch_engine_mesh.py holds it against the JAX one)."""
     for threshold in (500, 2000):
+        if entry == "SREngine":
+            engine = serve.SREngine(model_path, 2, tile_threshold=threshold, device="cpu")
+            try:
+                assert engine.tile_threshold == threshold
+                assert engine.upscale_u8(read_png(pngs[0])).shape == (40, 48, 3)
+            finally:
+                assert engine.close()
+            continue
         with pytest.raises(ValueError, match="tile_threshold must be 1000"):
-            calls[entry](threshold)
+            upscale_files(model_path, pngs[:1], tmp_path / "out", 2, tile_threshold=threshold,
+                          device="cpu")
     assert not (tmp_path / "out").exists()
 
 
@@ -155,7 +164,8 @@ def test_a_tile_threshold_other_than_the_routes_raises(entry, model_path, pngs, 
     (["--warm", "128x"], "--warm entries must be HxW"),
     (["--warm", "0x64"], "--warm entries must be HxW"),
     (["--paired", "1"], "--paired must be >= 2"),
-    (["--mesh-dp", "2"], "parallel layer"),
+    (["--mesh-dp", "2"], "--mesh-dp 2 but only 1 devices are available"),
+    (["--mesh-dp", "0"], "--mesh-dp must be >= 1, got 0"),
 ])
 def test_cli_refusals(argv, message, model_path, tmp_path, capsys):
     with pytest.raises(SystemExit):
@@ -163,7 +173,7 @@ def test_cli_refusals(argv, message, model_path, tmp_path, capsys):
                     *argv])
     assert message in capsys.readouterr().err
     assert not (tmp_path / "s").exists()
-    with pytest.raises(NotImplementedError, match="parallel layer"):
+    with pytest.raises((TypeError, ValueError), match="LocalMesh"):
         serve.SREngine(model_path, 2, mesh=object(), device="cpu")
 
 

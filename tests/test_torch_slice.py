@@ -294,18 +294,47 @@ SERVING_MODULES = ["ops/polyphase.py", "models/polyphase.py", "ops/ensemble.py",
                    "tools/run_example.py", "tools/upscale.py", "tools/serve.py",
                    "tools/http_gateway.py", "zoo.py", "tools/interpolate.py", "data/png.py"]
 TRAINING_SURFACE_MODULES = ["train/distill.py", "config/experiment.py", "tools/supervise.py"]
+PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
+                    "parallel/fsdp.py", "parallel/spatial.py", "parallel/tensor.py",
+                    "parallel/pipeline.py"]
 
 
 def test_port_imports_only_torch_numpy_and_stdlib():
     files = sorted((ROOT / "simplesr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert {ROOT / "simplesr_tpu_torch" / m
-            for m in GAN_MODULES + SERVING_MODULES + TRAINING_SURFACE_MODULES} <= set(files)
+            for m in GAN_MODULES + SERVING_MODULES + TRAINING_SURFACE_MODULES
+            + PARALLEL_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in FORBIDDEN and top in allowed, f"{path}: imports {name}"
+
+
+IMPORT_CHECK = """
+import sys
+import torch
+import simplesr_tpu_torch, simplesr_tpu_torch.ops, simplesr_tpu_torch.models
+import simplesr_tpu_torch.data, simplesr_tpu_torch.train, simplesr_tpu_torch.losses
+import simplesr_tpu_torch.config, simplesr_tpu_torch.eval, simplesr_tpu_torch.tools.serve
+import simplesr_tpu_torch.tools.train, simplesr_tpu_torch.parallel
+from simplesr_tpu_torch.parallel import (make_mesh, tp_apply, pipeline_apply, leaf_spec,
+                                         spatial_sharded_apply)
+assert not torch.cuda.is_initialized(), "importing the port initialised CUDA"
+assert not torch.distributed.is_initialized(), "importing the port made a process group"
+assert "jax" not in sys.modules
+print("IMPORT_CLEAN")
+"""
+
+
+def test_importing_the_port_initialises_no_backend():
+    """The counterpart of tests/parallel/test_import_no_backend_init.py:
+    ``initialize_multihost`` must come first, so importing the port (the
+    parallel layer too) initialises neither CUDA nor a process group."""
+    r = subprocess.run([sys.executable, "-c", IMPORT_CHECK], capture_output=True, text=True,
+                       timeout=300, cwd=ROOT)
+    assert r.returncode == 0 and "IMPORT_CLEAN" in r.stdout, r.stdout + r.stderr
 
 
 @pytest.mark.parametrize("entry", ["upscale_files", "engine", "load_model", "build",

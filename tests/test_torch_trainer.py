@@ -211,10 +211,14 @@ def test_constructor_checks_and_unported_options(tmp_path):
         SRModel("resnet", gen, grad_accum_steps=0, device="cpu")
     with pytest.raises(ValueError):
         SRModel("resnet", gen, ema_decay=1.5, device="cpu")
-    unported = [dict(mesh=object()), dict(tensor_parallel=True), dict(pipeline_parallel=True)]
-    for kw in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SRModel("resnet", generator=gen, device="cpu", **kw)
+    # the parallel layer: a mesh is a DeviceMesh; tensor and pipeline
+    # parallelism need their mesh axis (the JAX package's ValueErrors)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        SRModel("resnet", generator=gen, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="'model' axis"):
+        SRModel("resnet", generator=gen, device="cpu", tensor_parallel=True)
+    with pytest.raises(ValueError, match="'stage' axis"):
+        SRModel("resnet", generator=gen, device="cpu", pipeline_parallel=True)
     # ported since: distillation (a spec without a teacher is refused as the
     # JAX package refuses it), paired training, the GAN mode, the warm start,
     # EMA and gradient accumulation
