@@ -164,9 +164,8 @@ plain PyTorch version, in one process, with no arguments:
      the one the chip copy leaves out: finite distillation terms in the
      training and validation histories, a frozen teacher, one trunk launch
      per student call, and the step against the same step without the
-     teacher (alternating, medians of 20); (d) the native loader is not
-     ported (the GPU machine has no libpng or libjpeg headers), which the
-     phase prints.
+     teacher (alternating, medians of 20); (d) the native loader, which the
+     phase names as ported (phase 14 checks it).
  13. the parallel layer (``simplesr_tpu_torch.parallel``). The card is one:
      NCCL refuses two ranks on one device, so two rank processes
      (``chip_smoke.py --parallel-rank ...``, started by the phase, waited
@@ -201,10 +200,29 @@ plain PyTorch version, in one process, with no arguments:
      device count. Every rank's launch counts join the
      kernels line. Timings at 2 ranks on one card are printed, labelled, and
      no speed figure.
+ 14. image input: the port's host loader (``csrc/host/loader.cpp``: its own
+     PNG and JPEG decoders, a thread pool and an LRU cache; no CUDA). (a) its
+     build with g++ and zlib into a directory of its own, timed, with the
+     compiler's version; (b) the 16 gallery PNGs through ``NativeLoader``
+     bit-equal to the plain Python decoder (``data/png.py``), each one's
+     decode time (median of DECODE_RUNS) and MPix/s beside Python's; every
+     committed PNG and JPEG fixture (data/corpus/image_modes, the gallery's
+     JPEG copy) equal to its manifest's SHA-256 of PIL's decode, in both
+     16-bit-grey modes; (c) the gallery's JPEG copy decoded with one thread
+     and through the pool (MPix/s), ``load_crops`` equal to slices of
+     ``load_image_u8``, a truncated copy refused; (d) the production recipe,
+     cut as in phase 8, 1 epoch on data/corpus/gallery_jpeg through the
+     native loader: exit 0, a finite loss, a trunk launch a step at least,
+     its pipeline wait share beside phase 8's; (e) the daemon and the
+     gateway each answer SERVE_JPEGS gallery JPEG bodies bit-equal to
+     ``upscale_files`` of the same file (one trunk launch each), and refuse
+     a malformed JPEG (status 1, HTTP 400). The loader is no TPU kernel, so
+     its numbers stay out of the kernels line.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
-Prints one JSON object per phase, then the kernels' JSON line, and last
+Prints one JSON object per phase, then the host loader's line (phase 14's
+summary; it is no TPU kernel), the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``. Any failure prints its traceback and exits
 non-zero without that line; without a CUDA device it exits 2 at once.
 """
@@ -895,11 +913,12 @@ def run_instruments():
     return calls, seen, epochs, waits, instrumented
 
 
-def yaml_phase(dev, work, launches_by_path, card):
-    """Phase 8: training from a YAML file (see the docstring)."""
+def yaml_phase(dev, work, launches_by_path, card, notes=None):
+    """Phase 8: training from a YAML file (see the docstring); its wait
+    share goes into ``notes``."""
     from simplesr_tpu_torch.config import _yaml
     from simplesr_tpu_torch.data import DataPipeline
-    from simplesr_tpu_torch.data.png import read_rgb_u8
+    from simplesr_tpu_torch.data.image import read_rgb_u8
     from simplesr_tpu_torch.tools import train as train_tool
     from simplesr_tpu_torch.train import SRModel, load_model
 
@@ -931,7 +950,7 @@ def yaml_phase(dev, work, launches_by_path, card):
     calls, seen, epochs, waits, instrumented = run_instruments()
 
     t = time.perf_counter()
-    decoded = [read_rgb_u8(p) for p in sorted(gallery.glob("*.png"))]
+    decoded = [read_rgb_u8(p, native=False) for p in sorted(gallery.glob("*.png"))]
     decode_s = time.perf_counter() - t
 
     # the run
@@ -968,6 +987,8 @@ def yaml_phase(dev, work, launches_by_path, card):
               "pipeline_wait_share_per_epoch": [w / s for w, s in zip(epoch_wait_s, epoch_s)],
               "decode_16_pngs_s": decode_s, "decoded_mpix": sum(d.size for d in decoded) / 3e6,
               "peak_mem_bytes": peak, "save_dir_tree_as_jax": tree == JAX_RUN_TREE}
+    if notes is not None:
+        notes["phase8_wait_share"] = result["pipeline_wait_share"]
     log(8, check="the run", **result, card=card)
     if code != 0:
         raise AssertionError(f"tools.train.main returned {code}")
@@ -1468,7 +1489,7 @@ def srgan_phase(dev, work, launches_by_path, card):
 def esrgan_phase(dev, work, launches_by_path, card, tiled_png):
     """Phase 10: ESRGAN from its YAML file, and its model files served
     (see the docstring)."""
-    from simplesr_tpu_torch.data.png import read_img
+    from simplesr_tpu_torch.data.image import read_img
     from simplesr_tpu_torch.eval.evaluation import _as_predictor
     from simplesr_tpu_torch.models import build_generator_model
     from simplesr_tpu_torch.tools.upscale import upscale_files
@@ -2082,8 +2103,8 @@ SURFACE_RUNS = 20
 DISTILL_RECIPE = ROOT / "examples/training/srresnet_distill_x4.yaml"
 DISTILL_EPOCHS = 1
 SUPERVISE_TIMEOUT_S = 300
-LOADER_FINDING = ("not ported: the GPU machine has no png.h, jpeglib.h, libpng or libjpeg "
-                  "(ROADMAP.md, Queue 1); PNGs are decoded by data/png.py")
+LOADER_FINDING = ("ported: the host loader (csrc/host/loader.cpp, built with g++ and "
+                  "zlib) decodes the pipeline's PNG and JPEG; phase 14 checks it")
 # A training child that SIGKILLs itself once, after the first epoch's resume
 # point says so (the pattern of the JAX package's end-to-end supervisor test).
 FLAKY_TRAIN = """
@@ -2181,7 +2202,7 @@ def supervised_production_run(dev, work, launches_by_path):
     """Phase 12 (b): the production recipe as written, under the crash
     supervisor, its first child SIGKILLed after epoch 1."""
     from simplesr_tpu_torch.config import _yaml
-    from simplesr_tpu_torch.data.png import read_img
+    from simplesr_tpu_torch.data.image import read_img
     from simplesr_tpu_torch.train import load_model
 
     spec = _yaml.load(RECIPE)
@@ -2334,7 +2355,7 @@ def training_surface_phase(dev, work, gen, launches_by_path, card):
     supervised_s = time.perf_counter() - t
     t = time.perf_counter()
     distill_run(dev, work, launches_by_path, card)
-    log(12, check="(d) the native loader", ported=False, finding=LOADER_FINDING)
+    log(12, check="(d) the native loader", ported=True, finding=LOADER_FINDING)
     log(12, supervised_s=supervised_s, distill_s=time.perf_counter() - t,
         phase_s=time.perf_counter() - t_phase)
     return profile
@@ -2472,7 +2493,8 @@ def parallel_rank(rank, world, port, work, dev=None):
 
     import torch.distributed as dist
 
-    from simplesr_tpu_torch.data.png import read_img, read_png
+    from simplesr_tpu_torch.data.image import read_img
+    from simplesr_tpu_torch.data.png import read_png
     from simplesr_tpu_torch.parallel import (MODEL_AXIS, SPATIAL_AXIS, STAGE_AXIS, make_mesh,
                                              pipeline_apply, spatial_sharded_apply, tp_apply)
     from simplesr_tpu_torch.train import Generator, SRModel, load_model
@@ -2617,7 +2639,7 @@ def parallel_rank(rank, world, port, work, dev=None):
 def parallel_phase(dev, work, launches_by_path, card):
     """Phase 13: the parallel layer (see the docstring)."""
     from simplesr_tpu_torch.config import _yaml
-    from simplesr_tpu_torch.data.png import read_img
+    from simplesr_tpu_torch.data.image import read_img
     from simplesr_tpu_torch.parallel import make_mesh
     from simplesr_tpu_torch.tools import serve as serve_tool
     from simplesr_tpu_torch.tools import train as train_tool
@@ -2798,6 +2820,245 @@ def parallel_phase(dev, work, launches_by_path, card):
         raise AssertionError("parallel layer: " + "; ".join(failures))
 
 
+# ------------------------------------------------------------------ phase 14
+# Image input: the port's host loader (csrc/host/loader.cpp, g++ and zlib),
+# its PNG and JPEG decoders against the committed fixtures' digests of PIL's
+# decode (data/corpus/image_modes/MANIFEST.json: there is no PIL here) and
+# against the plain Python PNG decoder, then training and serving from JPEG.
+GALLERY_JPEG = ROOT / "data/corpus/gallery_jpeg"
+IMAGE_MANIFEST = ROOT / "data/corpus/image_modes/MANIFEST.json"
+DECODE_RUNS = 5  # each decode timing is a median of this many
+IMAGE_EPOCHS = 1
+SERVE_JPEGS = 2  # the smallest gallery JPEGs, through the daemon and the gateway
+JPEG_STUB = b"\xff\xd8\xff\xe0\x00\x10JFIF\x00" + bytes(64)  # a malformed JPEG body
+
+
+def median_ms(fn, runs=DECODE_RUNS):
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def image_input_phase(dev, work, launches_by_path, card, notes):
+    """Phase 14: image input (see the docstring). ``notes`` holds what
+    earlier phases measured (phase 8's wait share). Returns the host
+    loader's summary, which ``main`` prints on a line of its own."""
+    import hashlib
+
+    from simplesr_tpu_torch.config import _yaml
+    from simplesr_tpu_torch.data import native_loader
+    from simplesr_tpu_torch.data.image import decode_image
+    from simplesr_tpu_torch.data.png import as_rgb, decode_png, read_png
+    from simplesr_tpu_torch.tools import serve as serve_mod
+    from simplesr_tpu_torch.tools import train as train_tool
+    from simplesr_tpu_torch.tools.http_gateway import serve_http
+    from simplesr_tpu_torch.tools.upscale import upscale_files
+
+    start("14 image input: the host loader, every PNG mode, JPEG, training and serving "
+          "from JPEG")
+    t_phase = time.perf_counter()
+
+    def digest(img):
+        return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+    # (a) the build, from the source, into a directory of its own
+    t = time.perf_counter()
+    with patched(native_loader, "BUILD_DIR", lambda _: work / "host_build"):
+        built = native_loader.build()
+    build_s = time.perf_counter() - t
+    log(14, check="(a) the host loader's build", build_s=build_s,
+        compiler=native_loader.compiler_version(), cxx=native_loader.find_cxx(),
+        flags=list(native_loader.CXX_FLAGS + native_loader.LIBS), library=built.name)
+
+    # (b) PNG: the gallery natively and in Python, then every mode's fixture
+    loader = native_loader.NativeLoader(num_threads=1)
+    rows = []
+    for p in sorted((ROOT / "data/corpus/gallery").glob("*.png")):
+        data = p.read_bytes()
+        t = time.perf_counter()
+        plain = as_rgb(decode_png(data, str(p), grey16="loader"))
+        python_s = time.perf_counter() - t
+        native = loader.load_image_u8(p)
+        if not np.array_equal(native, plain):
+            raise AssertionError(f"{p.name}: the native and Python PNG decoders differ")
+        ms = median_ms(lambda: native_loader.decode_bytes(data, grey16="loader"))
+        mpix = native.shape[0] * native.shape[1] / 1e6
+        rows.append({"file": p.name, "mpix": mpix, "ms": ms, "mpix_per_s": mpix / ms * 1e3,
+                     "python_s": python_s})
+    native_s = sum(r["ms"] for r in rows) / 1e3
+    python_s = sum(r["python_s"] for r in rows)
+    mpix = sum(r["mpix"] for r in rows)
+    log(14, check="(b) the 16 gallery PNGs, native (bytes entry, median of "
+        f"{DECODE_RUNS}) and Python, bit-equal", files=rows, native_s=native_s,
+        python_s=python_s, native_mpix_per_s=mpix / native_s, python_mpix_per_s=mpix / python_s,
+        python_over_native=python_s / native_s, card=card)
+
+    manifest = json.loads(IMAGE_MANIFEST.read_text())
+    wrong, counts = [], {"png": 0, "jpeg": 0}
+    for entry in manifest["files"]:
+        data = (ROOT / entry["file"]).read_bytes()
+        want = {"pil": entry["sha256_pil_rgb"],
+                "loader": entry.get("sha256_loader_rgb", entry["sha256_pil_rgb"])}
+        for mode, sha in want.items():
+            got = [digest(decode_image(data, entry["file"], grey16=mode))]
+            if entry["format"] == "png":
+                got.append(digest(as_rgb(decode_png(data, entry["file"], grey16=mode))))
+            if any(g != sha for g in got):
+                wrong.append([entry["file"], mode])
+        counts[entry["format"]] += 1
+    log(14, check="(b, c) the committed fixtures against their manifest's digests of PIL's "
+        "decode", files=counts, pil=manifest["pil"], libjpeg_turbo=manifest["libjpeg_turbo"],
+        wrong=wrong)
+    if wrong:
+        raise AssertionError(f"fixtures decoded unlike PIL: {wrong}")
+
+    # (c) JPEG: the gallery's copy, one thread and the pool, crops, truncation
+    jpegs = sorted(GALLERY_JPEG.glob("*.jpg"))
+    bodies = [p.read_bytes() for p in jpegs]
+    jpeg_mpix = sum(np.prod(loader.image_size(p)) for p in jpegs) / 1e6
+    one_ms = median_ms(lambda: [native_loader.decode_bytes(b) for b in bodies])
+    threads = os.cpu_count() or 1
+    zeros = np.zeros(len(jpegs), np.int32)
+    pool_ms = median_ms(lambda: native_loader.NativeLoader(num_threads=threads).load_crops(
+        jpegs, zeros, zeros, 64, 64, dtype=np.uint8))
+    rng = np.random.default_rng(SEED)
+    picks = [jpegs[i % len(jpegs)] for i in range(48)]
+    sizes = [loader.image_size(p) for p in picks]
+    tops = [int(rng.integers(0, h - 96 + 1)) for h, _ in sizes]
+    lefts = [int(rng.integers(0, w - 96 + 1)) for _, w in sizes]
+    crops = native_loader.NativeLoader(num_threads=threads).load_crops(
+        picks, tops, lefts, 96, 96, dtype=np.uint8)
+    crops_equal = all(np.array_equal(c, loader.load_image_u8(p)[y:y + 96, x:x + 96])
+                      for c, p, y, x in zip(crops, picks, tops, lefts))
+    truncated = work / "truncated.jpg"
+    truncated.write_bytes(bodies[0][:len(bodies[0]) // 2])
+    refused = {}
+    for label, fn in (("bytes", lambda: native_loader.decode_bytes(truncated.read_bytes())),
+                      ("loader", lambda: native_loader.NativeLoader(1).load_image_u8(truncated))):
+        try:
+            fn()
+            refused[label] = False
+        except ValueError as e:
+            refused[label] = str(e)
+    log(14, check="(c) the gallery's JPEG copy", files=len(jpegs), mpix=jpeg_mpix,
+        one_thread_ms=one_ms, one_thread_mpix_per_s=jpeg_mpix / one_ms * 1e3,
+        pool_threads=threads, pool_ms=pool_ms, pool_mpix_per_s=jpeg_mpix / pool_ms * 1e3,
+        crops=len(crops), crops_equal_slices=crops_equal, truncated_refused=refused, card=card)
+    if not (crops_equal and all(refused.values())):
+        raise AssertionError(f"crops equal {crops_equal}, truncated refused {refused}")
+
+    # (d) training from the JPEG gallery: the production recipe, cut as in phase 8
+    spec = _yaml.load(RECIPE)
+    spec["general"].update(train_data_paths=str(GALLERY_JPEG), num_epochs=IMAGE_EPOCHS,
+                           random_seed=0, results_save_path=str(work / "jpeg_run"))
+    recipe = work / "jpeg_run.yaml"
+    recipe.write_text(_yaml.dump(spec))
+    calls, seen, epochs, waits, instrumented = run_instruments()
+    t = time.perf_counter()
+    code, launches = counted(lambda: instrumented(lambda: train_tool.main([str(recipe)])))
+    run_s = time.perf_counter() - t
+    launches_by_path["run_training_yaml_jpeg_x1_epoch"] = launches
+    losses = seen["model"].histories()["train_epoch"]["generator_loss"]
+    epoch_s = [b - a for a, b in epochs]
+    wait_s = [sum(d for t0, d in waits if a <= t0 < b) for a, b in epochs]
+    share = sum(wait_s) / sum(epoch_s)
+    log(14, check="(d) training from the JPEG gallery", exit=code, calls=dict(calls),
+        launches=launches, epoch_loss=losses, run_s=run_s, epoch_s=epoch_s,
+        native_loader=seen["pipeline"]._native is not None, pipeline_wait_share=share,
+        phase8_wait_share=notes.get("phase8_wait_share"), card=card)
+    if not (code == 0 and len(losses) == IMAGE_EPOCHS and all(np.isfinite(losses))
+            and seen["pipeline"]._native is not None and calls["train_step"] > 0
+            and launches["trunk"] >= calls["train_step"]):
+        raise AssertionError(f"JPEG training: exit {code}, losses {losses}, calls {calls}, "
+                             f"launches {launches}")
+
+    # (e) serving JPEG bodies: the daemon and the gateway against upscale_files
+    serve_dir = work / "jpeg_serve"
+    serve_dir.mkdir()
+    picks = sorted(jpegs, key=lambda p: (np.prod(loader.image_size(p)), p.name))[:SERVE_JPEGS]
+    refs = [read_png(p) for p in upscale_files(FLAGSHIP, picks, serve_dir / "ref", 4, device=dev)]
+    cwd = os.getcwd()
+    os.chdir(serve_dir)  # a short, relative socket path
+    ready, stop = threading.Event(), threading.Event()
+    server = threading.Thread(target=serve_mod.serve, args=(FLAGSHIP, 4), daemon=True,
+                              kwargs=dict(socket_path="sr.sock", ready_event=ready,
+                                          stop_event=stop, device=dev))
+    server.start()
+    try:
+        if not ready.wait(300):
+            raise AssertionError("the daemon did not become ready")
+
+        def session():
+            with serve_mod.SRClient("sr.sock") as client:
+                outs = [client.upscale_file(p) for p in picks]
+                try:
+                    client.upscale_bytes(JPEG_STUB)
+                    stub = "status 0"
+                except serve_mod.SRError as e:
+                    stub = str(e)
+            return outs, stub
+
+        (daemon_outs, daemon_stub), daemon_launches = counted(session)
+    finally:
+        stop.set()
+        server.join(timeout=60)
+        os.chdir(cwd)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # localhost only
+
+    def post(url, body):
+        try:
+            with opener.open(urllib.request.Request(url, data=body), timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    ready, stop, box = threading.Event(), threading.Event(), {}
+    gateway = threading.Thread(target=serve_http, args=(FLAGSHIP, 4, 0), daemon=True, kwargs=dict(
+        ready_event=ready, stop_event=stop, on_server=lambda srv: box.update(s=srv), device=dev))
+    gateway.start()
+    try:
+        if not ready.wait(300):
+            raise AssertionError("the gateway did not become ready")
+        url = f"http://127.0.0.1:{box['s'].server_address[1]}/upscale"
+        replies, http_launches = counted(lambda: [post(url, p.read_bytes()) for p in picks])
+        stub_code, stub_body = post(url, JPEG_STUB)
+    finally:
+        stop.set()
+        gateway.join(timeout=60)
+    launches_by_path["daemon_jpeg_session"] = daemon_launches
+    launches_by_path["http_gateway_jpeg_posts"] = http_launches
+    gateway_outs = [decode_png(body) if code == 200 else None for code, body in replies]
+    result = {
+        "files": [p.name for p in picks],
+        "daemon_bit_equal": [np.array_equal(o, r) for o, r in zip(daemon_outs, refs)],
+        "daemon_max_levels": [_levels(o, r) for o, r in zip(daemon_outs, refs)],
+        "gateway_status": [code for code, _ in replies],
+        "gateway_bit_equal": [o is not None and np.array_equal(o, r)
+                              for o, r in zip(gateway_outs, refs)],
+        "daemon_stub": daemon_stub, "gateway_stub": [stub_code, stub_body.decode()[:120]],
+        "launches": {"daemon": daemon_launches, "gateway": http_launches},
+        "stopped": not (server.is_alive() or gateway.is_alive())}
+    log(14, check="(e) serving JPEG bodies", **result, phase_s=time.perf_counter() - t_phase,
+        card=card)
+    want = {"trunk": SERVE_JPEGS, "patches": 0}
+    if not (all(result["daemon_bit_equal"]) and all(result["gateway_bit_equal"])
+            and "JPEG" in daemon_stub and stub_code == 400 and result["stopped"]
+            and daemon_launches == want and http_launches == want):
+        raise AssertionError(f"serving JPEG bodies: {result}")
+    return {"name": "host image loader", "route": "host C++ (g++, zlib)",
+            "source": "simplesr_tpu_torch/csrc/host/loader.cpp",
+            "replaces": "simplesr_tpu/data/_native/loader.cpp (libpng, libjpeg)",
+            "build_s": build_s, "png_native_s": native_s, "png_python_s": python_s,
+            "png_native_mpix_per_s": mpix / native_s,
+            "jpeg_one_thread_mpix_per_s": jpeg_mpix / one_ms * 1e3,
+            "jpeg_pool_mpix_per_s": jpeg_mpix / pool_ms * 1e3, "fixtures": counts,
+            "jpeg_training_wait_share": share,
+            "png_training_wait_share": notes.get("phase8_wait_share")}
+
+
 def io_stderr(run):
     """What ``run()`` writes to stderr before it exits (argparse's error)."""
     import io
@@ -2812,7 +3073,8 @@ def io_stderr(run):
 
 
 def main(work):
-    from simplesr_tpu_torch.data.png import read_img, read_png, write_png
+    from simplesr_tpu_torch.data.image import read_img
+    from simplesr_tpu_torch.data.png import read_png, write_png
     from simplesr_tpu_torch.eval.evaluation import (_TILE_BATCH, _TILE_OVERLAP, _TILE_PATCH,
                                                     _as_predictor, _upscale)
     from simplesr_tpu_torch.ops.kernels import (_build, extract_overlapping_patches,
@@ -3085,13 +3347,15 @@ def main(work):
         forward_stage_ms_one_tiled_batch=stages, runs=TIMING_RUNS, card=smi_line)
 
     profile_training = train_phase(dev, work, gen, launches_by_path, smi_line)
-    profile_yaml_run = yaml_phase(dev, work, launches_by_path, smi_line)
+    notes = {}
+    profile_yaml_run = yaml_phase(dev, work, launches_by_path, smi_line, notes)
     profile_srgan = srgan_phase(dev, work, launches_by_path, smi_line)
     profile_esrgan = esrgan_phase(dev, work, launches_by_path, smi_line, tiled_png)
     serving_phase(dev, work, launches_by_path, smi_line, tiled_png, tiled_lr, gallery_lr,
                   lr_batch, tiled_batches)
     profile_surface = training_surface_phase(dev, work, gen, launches_by_path, smi_line)
     parallel_phase(dev, work, launches_by_path, smi_line)
+    host_loader = image_input_phase(dev, work, launches_by_path, smi_line, notes)
     # the profilers of phases 7 to 10 and 12 last, after every timing
     for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan,
                     profile_surface):
@@ -3129,6 +3393,7 @@ def main(work):
          "bound_by": "bytes", "bound_share": patch_bound / patch_ms,
          "resources": _build.kernel_attributes("ssr_patches_attributes")},
     ]
+    print(json.dumps({"host_loader": host_loader}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,10 +11,15 @@ the same constructor, factories (``from_config``, ``eval_pipeline``,
   * HR goes to [-1, 1]; LR is the antialiased bicubic downscale of HR/255 in
     [0, 1], optionally JPEG-degraded.
 
-The host decodes each PNG once (``data/png.py``) into a uint8 cache and
-slices crops; numpy draws the file order, the shuffle and the crop offsets
-exactly as the JAX package draws them, so that HR batches are bit-equal to
-its own for one ``random_seed``. The per-batch work (augmentation, grouped
+The host decodes each image once into a uint8 cache and slices crops. With
+``use_native=True`` (the default, as in the JAX package) the port's C++
+loader (``data/native_loader.py``) decodes PNG and JPEG and serves naive
+crops from its own cache and thread pool; ``use_native=False`` decodes PNG in
+Python (``data/png.py``) and JPEG through the C++ decoder's bytes entry.
+Each path reads 16-bit grey as its JAX counterpart does: the native loader's
+high byte, or PIL's clip to 255. numpy draws the file order, the shuffle and
+the crop offsets exactly as the JAX package draws them, so that HR batches
+are bit-equal to its own for one ``random_seed``. The per-batch work (augmentation, grouped
 by kind; normalisation; the resize; the JPEG degrade) runs as tensor ops on
 the pipeline's device. The random parameters of each batch (the turns of
 ``rotate90``, the colour factors, JPEG qualities) come from a CPU
@@ -40,7 +45,8 @@ import numpy as np
 import torch
 
 from simplesr_tpu_torch.core.device import resolve_device
-from simplesr_tpu_torch.data.png import read_png_size, read_rgb_u8
+from simplesr_tpu_torch.data.image import read_rgb_u8
+from simplesr_tpu_torch.data.native_loader import get_native_loader
 from simplesr_tpu_torch.ops import augment as augment_ops
 from simplesr_tpu_torch.ops.jpeg import jpeg_degrade
 from simplesr_tpu_torch.ops.resize import resize as _resize
@@ -193,9 +199,8 @@ class DataPipeline:
             else int(np.random.default_rng().integers(2**31 - 1)))
         self._decode_cache = {}
         self._device_img_cache = {}
-        if use_native:
-            log.info("DataPipeline(use_native=True): the port has no native loader; "
-                     "PNGs are decoded in Python (data/png.py)")
+        # the C++ decode and crop server (thread pool, LRU cache)
+        self._native = get_native_loader() if use_native else None
 
         self.train_imgs, self.val_imgs = self._split_train_val()
         world, rank = _process_shard()
@@ -249,22 +254,38 @@ class DataPipeline:
         """The uint8 RGB image, decoded once."""
         img = self._decode_cache.get(path)
         if img is None:
-            img = self._decode_cache[path] = read_rgb_u8(path)
+            if self._native is not None:
+                img = self._native.load_image_u8(path)
+            else:
+                img = read_rgb_u8(path, native=False)
+            self._decode_cache[path] = img
         return img
 
     def _image_hw(self, path):
         img = self._decode_cache.get(path)
         if img is not None:
             return img.shape[0], img.shape[1]
-        return read_png_size(path)
+        if self._native is not None:
+            return self._native.image_size(path)
+        return self._decoded(path).shape[:2]
 
     # ------------------------------------------------- host crop assembly
 
     def _host_crops(self, path, rng):
         """``num_crops`` HWC uint8 crops of one image, naive or
-        diversity-sampled (bounded oversample, threshold, top-up by std)."""
+        diversity-sampled (bounded oversample, threshold, top-up by std).
+        Naive crops of an image not in the Python cache come from the C++
+        loader, with the same draws."""
         ph, pw = self.crop_size[0], self.crop_size[1]
         n = self.num_crops
+        if self.crop_naive and self._native is not None and path not in self._decode_cache:
+            h, w = self._native.image_size(path)
+            if h < ph or w < pw:
+                raise ValueError(f"patch {ph}x{pw} larger than image {h}x{w} ({path})")
+            tops = rng.integers(0, h - ph + 1, size=n).astype(np.int32)
+            lefts = rng.integers(0, w - pw + 1, size=n).astype(np.int32)
+            return list(self._native.load_crops([path] * n, tops, lefts, ph, pw,
+                                                dtype=np.uint8))
         img = self._decoded(path)
         h, w = img.shape[0], img.shape[1]
         if h < ph or w < pw:

@@ -19,7 +19,8 @@ import os
 import numpy as np
 import torch
 
-from simplesr_tpu_torch.data.png import read_rgb_u8, write_png
+from simplesr_tpu_torch.data.image import read_rgb_u8
+from simplesr_tpu_torch.data.png import write_png
 
 __all__ = ["tensor_to_img", "save_single", "combine_halfs", "prepare_image_grid"]
 

@@ -2,13 +2,12 @@
 
     python -m simplesr_tpu_torch.tools.http_gateway --model gen.msgpack \\
         --scale 4 --port 8080 [--device cpu]
-    curl -s --data-binary @input.png http://127.0.0.1:8080/upscale > out.png
+    curl -s --data-binary @input.jpg http://127.0.0.1:8080/upscale > out.png
 
 Endpoints:
-- ``POST /upscale``: the body is a PNG; the response is the SR result as
-  PNG (200). A body that cannot be decoded gets 400 (a JPEG too: the port
-  reads no JPEG yet), one over ``MAX_BODY_BYTES`` 413, a fault 500, each
-  with a plain-text message.
+- ``POST /upscale``: the body is a PNG or a JPEG; the response is the SR
+  result as PNG (200). A body that cannot be decoded gets 400, one over
+  ``MAX_BODY_BYTES`` 413, a fault 500, each with a plain-text message.
 - ``GET /healthz``: JSON liveness and the model, scale, ensemble and paired
   width served.
 
@@ -23,6 +22,7 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from simplesr_tpu_torch.data import native_loader
 from simplesr_tpu_torch.data.png import encode_png
 
 MAX_BODY_BYTES = 64 * 1024 * 1024  # refuse absurd uploads before decoding
@@ -33,10 +33,12 @@ def serve_http(model_path, scale, port, host="127.0.0.1", max_batch=8, max_wait_
                on_server=None, device="cuda"):
     """Run the HTTP gateway until ``stop_event`` is set (or forever).
     ``on_server(server)`` is called after binding and before readiness; with
-    ``port=0`` the bound port is ``server.server_address[1]``. Returns the
-    server object."""
+    ``port=0`` the bound port is ``server.server_address[1]``. The host
+    decoder is built before anything else, so a failed build fails start-up.
+    Returns the server object."""
     from simplesr_tpu_torch.tools.serve import SREngine, decode_image
 
+    native_loader.library()
     engine = SREngine(model_path, scale, max_batch=max_batch, max_wait_ms=max_wait_ms,
                       ensemble=ensemble, paired=paired, device=device)
     health = json.dumps({

@@ -23,13 +23,14 @@ Design:
 
 Protocol (length-prefixed frames over one persistent connection; send any
 number of requests, close to end the session):
-  client -> server: uint64 big-endian length + PNG bytes   (repeat)
+  client -> server: uint64 big-endian length + PNG or JPEG bytes   (repeat)
   server -> client: 1 status byte (0 = ok, 1 = error)
                     + uint64 big-endian length
                     + payload: PNG bytes (ok) | UTF-8 error message (error)
 A failed request (an undecodable image, a model error) gets status 1 and a
-message; the connection stays usable. Images are decoded and encoded by the
-port's own PNG code: a JPEG body gets status 1 (the port reads no JPEG yet).
+message; the connection stays usable. Bodies are decoded by the port's C++
+decoders (``data/image.py``: PNG of every mode and JPEG, as PIL reads them)
+and replies encoded by its PNG code; GIF, WebP and TIFF bodies get status 1.
 
 Run:    python -m simplesr_tpu_torch.tools.serve --model m.msgpack --scale 4 \\
             --socket /tmp/sr.sock [--device cpu]
@@ -51,15 +52,14 @@ import numpy as np
 import torch
 
 from simplesr_tpu_torch.core.device import resolve_device
+from simplesr_tpu_torch.data import native_loader
+from simplesr_tpu_torch.data.image import decode_image as _decode
 from simplesr_tpu_torch.data.png import as_rgb, decode_png, encode_png
 from simplesr_tpu_torch.eval.evaluation import _as_predictor, _upscale
 from simplesr_tpu_torch.parallel.mesh import LocalMesh, make_mesh
 
 _LEN = struct.Struct(">Q")
 
-# where JPEG decoding is queued
-JPEG_ITEM = "ROADMAP.md, Queue 1, the native loader (with JPEG decoding)"
-_JPEG_MAGIC = b"\xff\xd8\xff"
 
 
 # --------------------------------------------------------------- wire I/O
@@ -106,13 +106,9 @@ def _recv_reply(sock):
 
 
 def decode_image(blob):
-    """Request bytes -> uint8 RGB (H, W, 3). A JPEG raises naming the
-    ROADMAP item that brings JPEG decoding; anything else that is not a PNG
-    the port reads raises ValueError."""
-    if blob[:3] == _JPEG_MAGIC:
-        raise ValueError(f"JPEG input is not decoded by the port yet ({JPEG_ITEM}); "
-                         "send PNG")
-    return as_rgb(decode_png(blob, "request"))
+    """Request bytes (PNG or JPEG) -> uint8 RGB (H, W, 3), as PIL's
+    ``convert("RGB")`` gives them; anything else raises ValueError."""
+    return _decode(blob, "request")
 
 
 # ----------------------------------------------------------------- engine
@@ -320,7 +316,10 @@ def serve(model_path, scale, socket_path=None, tcp_port=None, max_batch=8, max_w
     """Run the daemon until ``stop_event`` is set (or forever). ``warm_shapes``
     (e.g. ((128, 128),)) runs those LR buckets in uint8, the dtype the socket
     serves, before readiness is signalled; ``ensemble`` and ``paired`` pick
-    the serving form as ``SREngine`` does. Returns the server object."""
+    the serving form as ``SREngine`` does. The host decoder is built before
+    anything else, so a failed build fails start-up and not each request.
+    Returns the server object."""
+    native_loader.library()
     engine = SREngine(model_path, scale, max_batch=max_batch, max_wait_ms=max_wait_ms,
                       ensemble=ensemble, paired=paired, mesh=mesh, device=device)
     try:

@@ -1,4 +1,4 @@
-"""Single-command upscaler: one model file, PNG images in, SR PNGs out.
+"""Single-command upscaler: one model file, PNG or JPEG images in, SR PNGs out.
 
     python -m simplesr_tpu_torch.tools.upscale \\
         --model results/quality_fastrecipe/models/resnet_gen_srresnet_x4_best.msgpack \\
@@ -19,14 +19,15 @@ import numpy as np
 import torch
 
 from simplesr_tpu_torch.core.device import resolve_device
-from simplesr_tpu_torch.data.png import read_img, write_png
+from simplesr_tpu_torch.data.image import read_img
+from simplesr_tpu_torch.data.png import write_png
 from simplesr_tpu_torch.eval.evaluation import (_as_predictor, _upscale,
                                                 check_tile_threshold)
 
 
 def upscale_files(model_path, inputs, output_dir, scale, tile_threshold=1000, fast=True,
                   ensemble=False, paired=0, device="cuda"):
-    """Upscale PNG files into ``output_dir`` as ``<name>_x<scale>.png``;
+    """Upscale PNG and JPEG files into ``output_dir`` as ``<name>_x<scale>.png``;
     return the output paths. ``tile_threshold`` is kept for the JAX
     package's signature: the route tiles LR images over 1000 x 1000, as
     there, and any other value raises ValueError."""

@@ -12,7 +12,7 @@ import json
 import os
 
 from simplesr_tpu_torch.train._msgpack import packb, unpackb
-from simplesr_tpu_torch.train.convert import from_flax_variables
+from simplesr_tpu_torch.train.convert import _sorted, from_flax_variables
 
 MODEL_EXT = ".msgpack"
 
@@ -20,9 +20,10 @@ MODEL_EXT = ".msgpack"
 def save_model(module_config, variables, path):
     """Write ``{config, variables}`` to ``path`` (directories created).
     ``variables`` is a flax-layout tree of numpy arrays or CPU tensors, as
-    ``convert.to_flax_variables`` gives it."""
+    ``convert.to_flax_variables`` gives it; its keys are written in flax's
+    (sorted) order."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    payload = {"config": json.dumps(module_config), "variables": packb(variables)}
+    payload = {"config": json.dumps(module_config), "variables": packb(_sorted(variables))}
     with open(path, "wb") as f:
         f.write(packb(payload))
 

@@ -12,7 +12,7 @@ import torch
 from simplesr_tpu.ops import augment as jax_augment
 from simplesr_tpu.ops import crop as jax_crop
 from simplesr_tpu.ops.resize import resize as jax_resize
-from simplesr_tpu_torch.data.png import read_img
+from simplesr_tpu_torch.data.image import read_img
 from simplesr_tpu_torch.ops import augment, crop
 from simplesr_tpu_torch.ops.resize import resize
 

@@ -207,7 +207,7 @@ def test_flagship_serving_form_against_training_form_at_bf16():
     gallery crop."""
     from pathlib import Path
 
-    from simplesr_tpu_torch.data.png import read_img
+    from simplesr_tpu_torch.data.image import read_img
     from simplesr_tpu_torch.eval.evaluation import _as_predictor
     from simplesr_tpu_torch.ops import metrics
 

@@ -16,7 +16,8 @@ from simplesr_tpu.train.generator import Generator as JaxGenerator
 from simplesr_tpu.train.serialization import load_model as jax_load_model
 from simplesr_tpu.train.serialization import load_payload as jax_load_payload
 from simplesr_tpu.train.serialization import save_model as jax_save_model
-from simplesr_tpu_torch.data.png import read_img, read_png, write_png
+from simplesr_tpu_torch.data.image import read_img
+from simplesr_tpu_torch.data.png import read_png, write_png
 from simplesr_tpu_torch.eval.evaluation import _as_predictor, _upscale
 from simplesr_tpu_torch.models import RRDBNet, build_generator_model
 from simplesr_tpu_torch.tools.upscale import upscale_files

@@ -1,6 +1,7 @@
 """The port's serving daemon, its client and the HTTP gateway on the CPU:
 outputs against the JAX package's ``upscale_files`` (within one level) and
-the port's own (bit for bit), failed requests that leave the session usable,
+the port's own (bit for bit), for PNG and JPEG bodies; failed requests (a
+malformed JPEG among them) that leave the session usable,
 the command line, the engine's batch ladder, and the PNG codec on bytes
 against PIL."""
 
@@ -73,6 +74,14 @@ def pngs(tmp_path_factory):
     return paths
 
 
+@pytest.fixture(scope="module")
+def jpeg(tmp_path_factory):
+    """A 20 x 24 gallery crop as a quality-90 JPEG (4:2:0)."""
+    path = tmp_path_factory.mktemp("jpeg") / "c.jpg"
+    Image.fromarray(read_png(GALLERY[5])[40:60, 50:74, :3]).save(path, quality=90)
+    return path
+
+
 @pytest.fixture
 def daemon(tmp_path, model_path, monkeypatch):
     """The daemon on a Unix socket under tmp_path (a relative path, which
@@ -92,7 +101,7 @@ def daemon(tmp_path, model_path, monkeypatch):
     assert not thread.is_alive() and not (tmp_path / sock).exists()
 
 
-def test_daemon_session_matches_upscale_files(daemon, pngs, tmp_path, model_path):
+def test_daemon_session_matches_upscale_files(daemon, pngs, jpeg, tmp_path, model_path):
     own = upscale_files(model_path, pngs, tmp_path / "port", 2, device="cpu")
     ref = jax_upscale_files(model_path, pngs, str(tmp_path / "jax"), 2)
     with serve.SRClient(daemon) as client:
@@ -106,9 +115,13 @@ def test_daemon_session_matches_upscale_files(daemon, pngs, tmp_path, model_path
                 for bad, why in ((b"not an image", "not a PNG"), (JPEG, "JPEG")):
                     with pytest.raises(serve.SRError, match=why):
                         client.upscale_bytes(bad)
-    with pytest.raises(serve.SRError, match="native loader"):
-        with serve.SRClient(daemon) as client:
-            client.upscale_bytes(JPEG)
+    # a JPEG body, once refused, decodes as PIL decodes it
+    own_jpeg = upscale_files(model_path, [jpeg], tmp_path / "port_jpeg", 2, device="cpu")[0]
+    ref_jpeg = jax_upscale_files(model_path, [jpeg], str(tmp_path / "jax_jpeg"), 2)[0]
+    with serve.SRClient(daemon) as client:
+        got = client.upscale_file(jpeg)
+    np.testing.assert_array_equal(got, read_png(own_jpeg))
+    assert np.abs(got.astype(int) - read_png(ref_jpeg)[:, :, :3].astype(int)).max() <= 1
     np.testing.assert_array_equal(serve.request_upscale(daemon, pngs[2]), read_png(own[2]))
 
 
@@ -226,7 +239,7 @@ def _gateway(serve_fn, model_path, **kwargs):
     return f"http://127.0.0.1:{box['s'].server_address[1]}", stop, thread
 
 
-def test_http_gateway(model_path, pngs, tmp_path, monkeypatch):
+def test_http_gateway(model_path, pngs, jpeg, tmp_path, monkeypatch):
     url, stop, thread = _gateway(http_gateway.serve_http, model_path, device="cpu")
     jax_url, jax_stop, jax_thread = _gateway(jax_serve_http, model_path)
     try:
@@ -238,7 +251,11 @@ def test_http_gateway(model_path, pngs, tmp_path, monkeypatch):
         code, _, msg = _http(url + "/upscale", b"garbage")
         assert code == 400 and b"cannot decode" in msg
         code, _, msg = _http(url + "/upscale", JPEG)
-        assert code == 400 and b"native loader" in msg
+        assert code == 400 and b"JPEG" in msg
+        code, ctype, png = _http(url + "/upscale", jpeg.read_bytes())
+        assert (code, ctype) == (200, "image/png")
+        own = upscale_files(model_path, [jpeg], tmp_path / "jpeg", 2, device="cpu")[0]
+        np.testing.assert_array_equal(decode_png(png), read_png(own))
         monkeypatch.setattr(http_gateway, "MAX_BODY_BYTES", 16)
         code, _, _ = _http(url + "/upscale", body)
         assert code == 413
@@ -253,6 +270,25 @@ def test_http_gateway(model_path, pngs, tmp_path, monkeypatch):
         thread.join(timeout=30)
         jax_thread.join(timeout=30)
     assert not thread.is_alive() and not jax_thread.is_alive()
+
+
+@pytest.mark.parametrize("entry", ["daemon", "gateway"])
+def test_a_failed_decoder_build_fails_start_up(entry, model_path, tmp_path, monkeypatch):
+    """The host decoder is built before readiness: without a compiler the
+    server does not start, where it would otherwise fail each request."""
+    from simplesr_tpu_torch.data import native_loader
+
+    monkeypatch.setattr(native_loader, "_library", None)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    ready = threading.Event()
+    kwargs = dict(ready_event=ready, stop_event=threading.Event(), device="cpu")
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        if entry == "daemon":
+            serve.serve(model_path, 2, socket_path=str(tmp_path / "s.sock"), **kwargs)
+        else:
+            http_gateway.serve_http(model_path, 2, 0, **kwargs)
+    assert not ready.is_set()
 
 
 @pytest.mark.parametrize("channels", [1, 3, 4])

@@ -23,7 +23,9 @@ from simplesr_tpu.models.polyphase import fast_inference as jax_fast_inference
 from simplesr_tpu.train.generator import Generator
 from simplesr_tpu.train.serialization import load_model as jax_load_model
 from simplesr_tpu.train.serialization import save_model as jax_save_model
-from simplesr_tpu_torch.data.png import read_img, read_png, write_png
+from _png_writer import write_png as write_adam7
+from simplesr_tpu_torch.data.image import read_img, read_rgb_u8
+from simplesr_tpu_torch.data.png import as_rgb, read_png, write_png
 from simplesr_tpu_torch.eval.evaluation import _as_predictor, _upscale
 from simplesr_tpu_torch.ops.kernels import _build
 from simplesr_tpu_torch.tools.serve import SREngine
@@ -199,6 +201,7 @@ def test_read_img_matches_pil(path):
     got = read_img(path)
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(read_rgb_u8(path, native=False), ref.astype(np.uint8))
 
 
 def _png_with_filters(img, filters):
@@ -245,6 +248,7 @@ def test_png_all_filters_and_colour_types(tmp_path, channels):
     np.testing.assert_array_equal(np.asarray(Image.open(path)).reshape(img.shape), img)
     expect_rgb = np.repeat(img, 3, axis=2) if channels == 1 else img[:, :, :3]
     np.testing.assert_array_equal(read_img(path), expect_rgb.astype(np.float32))
+    np.testing.assert_array_equal(read_rgb_u8(path, native=False), expect_rgb)
     write_png(tmp_path / "w.png", img)
     np.testing.assert_array_equal(
         np.asarray(Image.open(tmp_path / "w.png")).reshape(img.shape), img)
@@ -252,22 +256,44 @@ def test_png_all_filters_and_colour_types(tmp_path, channels):
 
 @pytest.mark.parametrize("mode", ["P", "I;16", "LA"])
 def test_png_unsupported_kinds_raise(tmp_path, mode):
+    """Palette, 16-bit grey and grey+alpha PNGs, once refused, now decode as
+    PIL's convert("RGB") gives them, in Python and through the dispatcher."""
+    rng = np.random.default_rng(len(mode))
+    rgb = rng.integers(0, 256, (9, 11, 3), dtype=np.uint8)
+    if mode == "I;16":
+        img = Image.fromarray(rng.integers(0, 600, (9, 11)).astype(np.uint16))
+    else:
+        img = Image.fromarray(rgb).convert(mode) if mode == "LA" else \
+            Image.fromarray(rgb).quantize(7)
     path = tmp_path / "u.png"
-    Image.new(mode, (4, 4)).save(path)
-    with pytest.raises(ValueError):
-        read_png(path)
+    img.save(path)
+    want = np.asarray(Image.open(path).convert("RGB"))
+    np.testing.assert_array_equal(as_rgb(read_png(path)), want)
+    np.testing.assert_array_equal(read_rgb_u8(path), want)
+    np.testing.assert_array_equal(read_img(path), want.astype(np.float32))
 
 
 def test_png_interlaced_and_bad_input_raise(tmp_path):
+    """An Adam7 PNG, once refused, decodes as PIL decodes it; a GIF and a
+    float array still raise."""
     path = tmp_path / "i.png"
-    data = bytearray(_png_with_filters(np.zeros((2, 2, 3), np.uint8), [0]))
-    data[8 + 8 + 12] = 1  # IHDR interlace byte
+    img = np.random.default_rng(2).integers(0, 256, (13, 10, 3), dtype=np.uint8)
+    data = bytearray(_png_with_filters(img, [0]))
+    data[8 + 8 + 12] = 1  # IHDR interlace byte: the same bytes are no longer an image
     path.write_bytes(bytes(data))
     with pytest.raises(ValueError):
         read_png(path)
+    path.write_bytes(write_adam7(img, 2, 8, interlace=1))
+    want = np.asarray(Image.open(path).convert("RGB"))
+    np.testing.assert_array_equal(want, img)
+    np.testing.assert_array_equal(read_png(path), img)
+    np.testing.assert_array_equal(read_rgb_u8(path), img)
+    np.testing.assert_array_equal(read_rgb_u8(path, native=False), img)
     path.write_bytes(b"GIF89a")
     with pytest.raises(ValueError):
         read_png(path)
+    with pytest.raises(ValueError):
+        read_rgb_u8(path)
     with pytest.raises(ValueError):
         write_png(tmp_path / "x.png", np.zeros((2, 2, 3), np.float32))
 
@@ -294,6 +320,9 @@ SERVING_MODULES = ["ops/polyphase.py", "models/polyphase.py", "ops/ensemble.py",
                    "tools/run_example.py", "tools/upscale.py", "tools/serve.py",
                    "tools/http_gateway.py", "zoo.py", "tools/interpolate.py", "data/png.py"]
 TRAINING_SURFACE_MODULES = ["train/distill.py", "config/experiment.py", "tools/supervise.py"]
+# the image-input layer and the Keras importer
+IMAGE_INPUT_MODULES = ["data/image.py", "data/native_loader.py", "data/png.py",
+                       "train/_hdf5.py", "tools/import_keras.py"]
 PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
                     "parallel/fsdp.py", "parallel/spatial.py", "parallel/tensor.py",
                     "parallel/pipeline.py"]
@@ -304,7 +333,7 @@ def test_port_imports_only_torch_numpy_and_stdlib():
     assert len(files) > 15
     assert {ROOT / "simplesr_tpu_torch" / m
             for m in GAN_MODULES + SERVING_MODULES + TRAINING_SURFACE_MODULES
-            + PARALLEL_MODULES} <= set(files)
+            + PARALLEL_MODULES + IMAGE_INPUT_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
