@@ -218,6 +218,17 @@ plain PyTorch version, in one process, with no arguments:
      ``upscale_files`` of the same file (one trunk launch each), and refuse
      a malformed JPEG (status 1, HTTP 400). The loader is no TPU kernel, so
      its numbers stay out of the kernels line.
+ 15. the Keras exporter (``tools/export_keras.py`` over the port's own HDF5
+     writer, ``train/_hdf5_write.py``; a GPU machine without h5py or
+     TensorFlow has no other reader or writer of the format): (a) the
+     flagship and RRDB_SERVED written as legacy-Keras ``.h5`` files, each
+     export's seconds and file size; (b) each file read back through the
+     port's ``tools/import_keras.py``, every array bit-equal to the source
+     model file's and the config the same; (c) the re-imported flagship
+     through ``upscale_files`` on the gallery PNG and on phase 3's LR PNG,
+     bit-equal to the flagship's output, with phase 4's launch counts (one
+     trunk launch untiled); (d) a wide-growth RRDB refused with
+     ``ValueError``, no file written.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -3059,6 +3070,96 @@ def image_input_phase(dev, work, launches_by_path, card, notes):
             "png_training_wait_share": notes.get("phase8_wait_share")}
 
 
+# ------------------------------------------------------------------ phase 15
+# The Keras exporter: legacy-Keras .h5 files written by the port's own HDF5
+# writer, read back by the port's importer (without h5py and TensorFlow
+# these are the only reader and writer of the format there is) and served.
+WIDE_GROWTH = dict(upsample_factor=2, architecture="rrdb", num_blocks=1, num_dense_blocks=2,
+                   num_convs=2, num_filters=8, growth_channels=8, residual_scaling=0.2,
+                   batch_norm=False)
+
+
+def flat_arrays(tree, prefix=""):
+    """{"collection/path": array} of a variables tree."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(flat_arrays(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = np.asarray(value)
+    return out
+
+
+def keras_export_phase(dev, work, launches_by_path, card, tiled_png):
+    """Phase 15: the Keras exporter (see the docstring)."""
+    from simplesr_tpu_torch.data.png import read_png
+    from simplesr_tpu_torch.models import build_generator_model
+    from simplesr_tpu_torch.tools.export_keras import export_keras_model
+    from simplesr_tpu_torch.tools.import_keras import import_keras_model
+    from simplesr_tpu_torch.tools.upscale import upscale_files
+    from simplesr_tpu_torch.train.convert import to_flax_variables
+    from simplesr_tpu_torch.train.serialization import load_payload, save_model
+
+    start("15 the Keras exporter: export, re-import, serve, refuse")
+    t_phase = time.perf_counter()
+    out = work / "keras"
+    out.mkdir()
+    # (a) export and (b) read back through the port's importer
+    for label, path in (("flagship", FLAGSHIP), ("rrdb_served", RRDB_SERVED)):
+        config, variables = load_payload(path)
+        h5, msgpack = out / f"{label}.h5", out / f"{label}.msgpack"
+        t = time.perf_counter()
+        layers, _ = export_keras_model(path, h5)
+        export_s = time.perf_counter() - t
+        rrdb = {k: config[k] for k in ("num_dense_blocks", "num_convs", "residual_scaling")} \
+            if config["architecture"] == "rrdb" else {}
+        t = time.perf_counter()
+        config2, variables2 = import_keras_model(h5, msgpack, **rrdb)
+        import_s = time.perf_counter() - t
+        want, got = flat_arrays(variables), flat_arrays(variables2)
+        equal = sorted(want) == sorted(got) and all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want)
+        config_equal = all(config2[k] == config[k] for k in config2)
+        log(15, check="(a) export, (b) the port's importer", model=label,
+            config={k: config[k] for k in ("architecture", "num_blocks", "num_filters")},
+            layers=len(layers), weight_layers=sum(1 for _, _, w in layers if w),
+            arrays=len(want), h5_bytes=h5.stat().st_size, export_s=export_s,
+            import_s=import_s, bit_equal=equal, config_equal=config_equal, card=card)
+        if not (equal and config_equal):
+            raise AssertionError(f"{label}: the re-imported model differs from its source "
+                                 f"(arrays equal {equal}, config {config2} vs {config})")
+
+    # (c) the re-imported flagship served as the flagship is
+    served = {}
+    for label, png in (("untiled", GALLERY_PNG), ("tiled", tiled_png)):
+        (ref,) = upscale_files(FLAGSHIP, [png], out / f"orig_{label}", 4, device=dev)
+        (new,), launches = counted(lambda: upscale_files(
+            out / "flagship.msgpack", [png], out / f"keras_{label}", 4, device=dev))
+        launches_by_path[f"upscale_files_keras_{label}"] = launches
+        served[label] = {"launches": launches, "phase4_launches":
+                         launches_by_path[f"upscale_files_{label}"],
+                         "bit_equal": np.array_equal(read_png(new), read_png(ref))}
+    log(15, check="(c) the re-imported flagship through upscale_files", **served, card=card)
+    if not all(s["bit_equal"] and s["launches"] == s["phase4_launches"]
+               for s in served.values()):
+        raise AssertionError(f"serving the re-imported flagship: {served}")
+
+    # (d) a wide-growth RRDB has no reference form and is refused
+    wide = out / "rrdb_wide.msgpack"
+    torch.manual_seed(SEED)
+    save_model(WIDE_GROWTH, to_flax_variables(
+        build_generator_model(**WIDE_GROWTH, device="cpu").state_dict()), wide)
+    try:
+        export_keras_model(wide, out / "rrdb_wide.h5")
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    log(15, check="(d) a wide-growth RRDB refused", refusal=refusal,
+        written=(out / "rrdb_wide.h5").exists(), phase_s=time.perf_counter() - t_phase)
+    if refusal is None or "growth_channels" not in refusal or (out / "rrdb_wide.h5").exists():
+        raise AssertionError(f"the wide-growth RRDB was not refused: {refusal}")
+
+
 def io_stderr(run):
     """What ``run()`` writes to stderr before it exits (argparse's error)."""
     import io
@@ -3356,6 +3457,7 @@ def main(work):
     profile_surface = training_surface_phase(dev, work, gen, launches_by_path, smi_line)
     parallel_phase(dev, work, launches_by_path, smi_line)
     host_loader = image_input_phase(dev, work, launches_by_path, smi_line, notes)
+    keras_export_phase(dev, work, launches_by_path, smi_line, tiled_png)
     # the profilers of phases 7 to 10 and 12 last, after every timing
     for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan,
                     profile_surface):

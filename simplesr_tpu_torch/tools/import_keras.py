@@ -226,6 +226,19 @@ def import_rrdb(layers, num_dense_blocks=3, num_convs=4,
     return config, {"params": params}
 
 
+def check_variables(config, variables):
+    """Raise ``ValueError`` unless ``variables`` is exactly the tree of the
+    port's module of ``config``: every variable in place and of its shape."""
+    from simplesr_tpu_torch.models import build_generator_model
+    from simplesr_tpu_torch.train.convert import from_flax_variables
+
+    module = build_generator_model(**config, device="cpu")
+    try:
+        module.load_state_dict(from_flax_variables(module, variables))
+    except (KeyError, RuntimeError) as e:
+        raise ValueError(f"the variables do not match {config}: {e}") from None
+
+
 def import_keras_model(h5_path, out_path=None, arch=None,
                        num_dense_blocks=3, num_convs=4, residual_scaling=0.2):
     """Convert a reference ``.h5`` generator -> (config, flax-layout
@@ -244,16 +257,7 @@ def import_keras_model(h5_path, out_path=None, arch=None,
     else:
         raise ValueError(f"unknown arch {arch!r} (srresnet|rrdb)")
 
-    # check against the port's module of that config: every variable in
-    # place and of its shape (catches silent mis-maps)
-    from simplesr_tpu_torch.models import build_generator_model
-    from simplesr_tpu_torch.train.convert import from_flax_variables
-    module = build_generator_model(**config, device="cpu")
-    try:
-        module.load_state_dict(from_flax_variables(module, variables))
-    except (KeyError, RuntimeError) as e:
-        raise ValueError(f"imported tree does not match {config}: {e}") from None
-
+    check_variables(config, variables)  # catches silent mis-maps
     if out_path is not None:
         from simplesr_tpu_torch.train import serialization
         serialization.save_model(config, variables, out_path)

@@ -13,29 +13,10 @@ import h5py
 import numpy as np
 import pytest
 
+from _h5_compare import assert_same as _assert_same
 from simplesr_tpu_torch.train import _hdf5
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def _assert_same(got, want):
-    if isinstance(want, h5py.Dataset):
-        assert isinstance(got, _hdf5.Dataset)
-        a, b = got[()], want[()]
-        assert type(a) is type(b) and np.asarray(a).dtype == np.asarray(b).dtype
-        assert np.asarray(a).shape == np.asarray(b).shape == got.shape
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    else:
-        assert isinstance(got, _hdf5.Group) and sorted(got.keys()) == sorted(want.keys())
-        for name in want:
-            _assert_same(got[name], want[name])
-    assert sorted(got.attrs) == sorted(want.attrs)
-    for name, value in want.attrs.items():
-        mine = got.attrs[name]
-        assert type(mine) is type(value), name
-        if isinstance(value, np.ndarray):
-            assert mine.dtype == value.dtype and mine.shape == value.shape
-        np.testing.assert_array_equal(np.asarray(mine), np.asarray(value))
 
 
 def _fill(f, rng, latest):

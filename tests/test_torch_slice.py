@@ -299,7 +299,7 @@ def test_png_interlaced_and_bad_input_raise(tmp_path):
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "simplesr_tpu", "msgpack", "PIL",
-             "yaml", "cv2", "tensorflow", "imageio", "ninja"}
+             "yaml", "cv2", "tensorflow", "imageio", "ninja", "h5py", "tf_keras", "keras"}
 
 
 def _imports(path):
@@ -320,9 +320,10 @@ SERVING_MODULES = ["ops/polyphase.py", "models/polyphase.py", "ops/ensemble.py",
                    "tools/run_example.py", "tools/upscale.py", "tools/serve.py",
                    "tools/http_gateway.py", "zoo.py", "tools/interpolate.py", "data/png.py"]
 TRAINING_SURFACE_MODULES = ["train/distill.py", "config/experiment.py", "tools/supervise.py"]
-# the image-input layer and the Keras importer
+# the image-input layer, the Keras importer and the Keras exporter
 IMAGE_INPUT_MODULES = ["data/image.py", "data/native_loader.py", "data/png.py",
-                       "train/_hdf5.py", "tools/import_keras.py"]
+                       "train/_hdf5.py", "tools/import_keras.py", "train/_hdf5_write.py",
+                       "tools/export_keras.py"]
 PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
                     "parallel/fsdp.py", "parallel/spatial.py", "parallel/tensor.py",
                     "parallel/pipeline.py"]
