@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from simplesr_tpu_torch.core.dtypes import OUTPUT_CONV_TF32
-from simplesr_tpu_torch.models.blocks import (ConvLayer, PReLU, SubpixelConvBlock, glorot_conv,
+from simplesr_tpu_torch.models.blocks import (ConvLayer, PReLU, SubpixelConvBlock, he_conv,
                                               pinned_conv2d)
 from simplesr_tpu_torch.ops.kernels.trunk import (
     KERNEL_WIDTH,
@@ -79,7 +79,9 @@ class SRResNet(nn.Module):
         self.upsample = nn.ModuleList(
             SubpixelConvBlock(num_filters, 2, activation=True, dtype=dtype)
             for _ in range(upsample_factor.bit_length() - 1))
-        self.out = glorot_conv(num_filters, 3, 9)
+        # the JAX model's output conv keeps flax's default kernel init,
+        # lecun_normal: variance_scaling(1.0, "fan_in", "truncated_normal")
+        self.out = he_conv(num_filters, 3, 9, scale=1.0)
         self.uses_trunk_kernel = (not batch_norm and dtype == torch.bfloat16
                                   and num_filters == KERNEL_WIDTH)
         self._packed = None  # (key, the parameters' storage, TrunkWeights)

@@ -23,7 +23,7 @@ Design:
 
 Protocol (length-prefixed frames over one persistent connection; send any
 number of requests, close to end the session):
-  client -> server: uint64 big-endian length + PNG or JPEG bytes   (repeat)
+  client -> server: uint64 big-endian length + PNG, JPEG or BMP bytes   (repeat)
   server -> client: 1 status byte (0 = ok, 1 = error)
                     + uint64 big-endian length
                     + payload: PNG bytes (ok) | UTF-8 error message (error)
@@ -106,7 +106,7 @@ def _recv_reply(sock):
 
 
 def decode_image(blob):
-    """Request bytes (PNG or JPEG) -> uint8 RGB (H, W, 3), as PIL's
+    """Request bytes (PNG, JPEG or BMP) -> uint8 RGB (H, W, 3), as PIL's
     ``convert("RGB")`` gives them; anything else raises ValueError."""
     return _decode(blob, "request")
 

@@ -8,8 +8,9 @@ names ("generator_loss", one mean per loss functor, ``weighted_`` variants)
 as the JAX package. The module lives on one device and ``SRModel`` trains
 its parameters in place; ``variables`` gives them in flax's layout.
 Parameters are initialised from ``seed`` as flax initialises them
-(glorot-uniform or scaled he-normal kernels, zero biases and PReLU slopes),
-but from torch's generator: the same seed gives other numbers than JAX's.
+(glorot-uniform, lecun-normal or scaled he-normal kernels, zero biases and
+PReLU slopes), but from torch's generator: the same seed gives other
+numbers than JAX's.
 
 A warm start takes the module from ``pretrained_model`` (a ``Generator``,
 or ``(module, variables)`` with the variables in flax's layout, or None for

@@ -86,9 +86,15 @@ def test_seeded_init_is_reproducible_and_flax_shaped():
     for (path, x), y in zip(jax.tree_util.tree_leaves_with_path(ref),
                             jax.tree_util.tree_leaves(a.variables)):
         assert np.shape(x) == np.shape(y), path
-        if path[-1].key == "kernel":  # glorot uniform: |w| <= sqrt(6 / (fan_in + fan_out))
+        if path[-1].key == "kernel":
             h, w, i, o = np.shape(x)
-            assert np.abs(y).max() <= np.sqrt(6.0 / ((i + o) * h * w)) + 1e-7
+            if path[-2].key == "Conv_0" and path[-3].key == "params":
+                # the output conv keeps flax's default, lecun normal: a normal
+                # truncated at 2 sigma with variance 1 / fan_in
+                bound = 2.0 * np.sqrt(1.0 / (i * h * w)) / 0.87962566103423978
+            else:  # glorot uniform: |w| <= sqrt(6 / (fan_in + fan_out))
+                bound = np.sqrt(6.0 / ((i + o) * h * w))
+            assert np.abs(y).max() <= bound + 1e-7, path
 
 
 @pytest.mark.parametrize("obj", [

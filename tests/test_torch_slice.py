@@ -324,6 +324,9 @@ TRAINING_SURFACE_MODULES = ["train/distill.py", "config/experiment.py", "tools/s
 IMAGE_INPUT_MODULES = ["data/image.py", "data/native_loader.py", "data/png.py",
                        "train/_hdf5.py", "tools/import_keras.py", "train/_hdf5_write.py",
                        "tools/export_keras.py"]
+# the quality tooling and the BMP decoder it reads
+QUALITY_MODULES = ["tools/quality_campaign.py", "tools/quality_check.py", "tools/gan_smoke.py",
+                   "tools/standard_benchmarks.py", "data/bmp.py"]
 PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
                     "parallel/fsdp.py", "parallel/spatial.py", "parallel/tensor.py",
                     "parallel/pipeline.py"]
@@ -334,7 +337,7 @@ def test_port_imports_only_torch_numpy_and_stdlib():
     assert len(files) > 15
     assert {ROOT / "simplesr_tpu_torch" / m
             for m in GAN_MODULES + SERVING_MODULES + TRAINING_SURFACE_MODULES
-            + PARALLEL_MODULES + IMAGE_INPUT_MODULES} <= set(files)
+            + PARALLEL_MODULES + IMAGE_INPUT_MODULES + QUALITY_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
@@ -373,7 +376,8 @@ def test_importing_the_port_initialises_no_backend():
                                    "esrgan_generator", "gan_yaml", "serve", "serve_http",
                                    "zoo_load", "run_example", "evaluate_on_testdata",
                                    "engine_fast", "engine_ensemble", "build_distiller",
-                                   "supervise"])
+                                   "supervise", "quality_campaign", "quality_check",
+                                   "gan_smoke", "standard_benchmarks"])
 def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -382,6 +386,8 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     from simplesr_tpu_torch.data import DataPipeline
     from simplesr_tpu_torch.eval.evaluation import evaluate_on_testdata
     from simplesr_tpu_torch.models import build_generator_model
+    from simplesr_tpu_torch.tools import gan_smoke, quality_campaign, quality_check
+    from simplesr_tpu_torch.tools import standard_benchmarks
     from simplesr_tpu_torch.tools.http_gateway import serve_http
     from simplesr_tpu_torch.tools.run_example import main as run_example_main
     from simplesr_tpu_torch.tools.serve import serve
@@ -423,7 +429,16 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
              "engine_fast": lambda: SREngine(small_model, 2, fast=True),
              "engine_ensemble": lambda: SREngine(small_model, 2, ensemble=True),
              "build_distiller": lambda: build_distiller(small_model),
-             "supervise": lambda: supervise_main([str(yaml_path)])}
+             "supervise": lambda: supervise_main([str(yaml_path)]),
+             "quality_campaign": lambda: quality_campaign.main(fast=True, tiny=True),
+             "quality_check": lambda: quality_check.main(steps=1, tiny=True),
+             "gan_smoke": lambda: gan_smoke.main(steps=1, tiny=True),
+             "standard_benchmarks": lambda: standard_benchmarks.main(
+                 ["--data-root", str(sets), "--models", small_model, "--out",
+                  str(tmp_path / "results")])}
+    sets = tmp_path / "sets"
+    (sets / "Set5").mkdir(parents=True)
+    shutil.copy(GALLERY[0], sets / "Set5" / GALLERY[0].name)
     inference = {"general": {"operation": "inference", "data_paths": str(GALLERY[0].parent),
                              "test_originals_path": None, "model_paths": [small_model],
                              "results_save_path": str(tmp_path / "results"), "scale": 2}}
