@@ -251,6 +251,41 @@ plain PyTorch version, in one process, with no arguments:
      STANDIN_TILE_THRESHOLD (gt_1 tiles: a patch launch), its per-image
      scores against the untiled route's within STANDIN_*_TOL, and its
      scores beside the Set5 anchors, labelled a stand-in.
+ 17. the denoising path, each path with the launch counts set to 0 just
+     before and read just after: (a) the port's JPEG encoder
+     (``csrc/host/jpeg_encode.cpp`` in the host loader's library) writes
+     every committed fixture of data/corpus/jpeg_encode byte for byte (its
+     manifest's SHA-256 of PIL's file), and its MPix/s on one thread and the
+     decoder's on the same file; (b) the three committed denoising models
+     (round 4's noise-trained model and its clean control, round 3's
+     fixed-quality model; SRResNet x2, 16 x 64, BN-free, bf16, through the
+     trunk kernel) scored through ``tools/jpg_noise_campaign.evaluate`` on
+     the four held-out gallery tiles, clean and at real-JPEG qualities 30,
+     50, 75 and 90 (the port's encoder and decoder, PIL's bytes), every
+     PSNR, PSNR-Y and SSIM within RESCORE_*_TOL of the JAX package's rows
+     (JAX_JPG_ROWS, from jpg_noise_reference.py); (c) ``domain_gap`` on the
+     card: the DCT degrade's input PSNR against real JPEG per tile and
+     quality within DOMAIN_GAP_TOL of the JAX package's (JAX_JPG_GAP), the
+     model's outputs on each within RESCORE_PSNR_TOL; (d)
+     examples/training/srresnet_denoise_x2.yaml through ``tools.train.main``
+     (the DCT degrade on the device), cut to the gallery PNGs, 1 epoch,
+     seed 0 and a temporary results directory (printed in ``reduced``),
+     once with the file's ``jpg_noise_level: 50`` and once with the range
+     ``[5, 70]``: exit 0, a finite loss, a trunk launch a step at least, a
+     degrade a batch at the fixed quality 50 or at qualities spread over
+     [30, 95); printed: the step's ms end to end, the pipeline's wait share
+     and the degrade's device ms a batch (CUDA events); (e)
+     ``jpg_noise_campaign.main(fast=True)`` with ``FAST_SIZE = {}``: the
+     campaign's --fast schedule at full width (16 x 64) on 4 training
+     tiles into a temporary directory, its RESULTS_jpg.json read back by the port's
+     ``zoo``; (f) ``tools/ensemble_study`` over its five committed models on
+     the held-out tiles with the cost line (plain against x8, CUDA events,
+     batch 8 of 128 x 128 LR), each plain PSNR within NEAR_BICUBIC_DB of
+     bicubic's or above (but for PRE_TRUNK_FIX_MODELS), and each model's
+     rows on ENSEMBLE_CROP within RESCORE_*_TOL of the JAX package's
+     (JAX_ENSEMBLE_ROWS, from ensemble_reference.py); and
+     ``tools/ema_study`` for 1 epoch on the same 4 training tiles. A
+     missing committed model fails the phase.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -3368,6 +3403,493 @@ def quality_phase(dev, work, launches_by_path, card):
     log(16, phase_s=time.perf_counter() - t_phase)
 
 
+# ------------------------------------------------------------------ phase 17
+# The denoising path: the port's JPEG encoder against PIL's bytes, the three
+# committed denoising models scored on real-JPEG inputs against the JAX
+# package's rows, the DCT-vs-libjpeg gap, the denoising YAML recipe with a
+# fixed and a ranged noise level, the JPEG-noise campaign and both studies.
+JPEG_ENCODE_MANIFEST = ROOT / "data/corpus/jpeg_encode/MANIFEST.json"
+ENCODE_TIMING_IMAGE = ROOT / "data/corpus/gallery/gt_10.png"  # 768 x 448, q 75
+DENOISE_MODELS = {
+    "round4_noise": ROOT / "results/quality_r4/models/resnet_gen_srresnet_jpg_rq_x2_best.msgpack",
+    "round4_control": ROOT / "results/quality_r4/models/resnet_gen_srresnet_ctl_x2_best.msgpack",
+    "round3_noise": ROOT / "results/quality_r3/models/resnet_gen_srresnet_jpg_x2_best.msgpack",
+}
+DENOISE_RECIPE = ROOT / "examples/training/srresnet_denoise_x2.yaml"
+DENOISE_LEVELS = {"fixed": 50, "range": [5, 70]}  # the file's level, the campaign's range
+DENOISE_EPOCHS = 1
+# the campaign's cut: its --fast schedule (3 epochs, 12 crops a megapixel, 8
+# validation crops an image) at full width, on 4 of the 12 training tiles
+CAMPAIGN_TRAIN_TILES = ("gt_11", "gt_14", "gt_2", "gt_8")
+# the EMA study's cut: 1 epoch on the same 4 tiles (48 GAN steps)
+EMA_EPOCHS = 1
+# ensemble_reference.py (scripts/ensemble_study.py's eval_model, the five
+# committed models in bf16 on the CPU; PERF.md §6): each model's row on a 64
+# px crop of the held-out tile gt_6 (rows 100-163, columns 150-213), as
+# (psnr_plain, psnr_y_plain, ssim_plain, psnr_ens, psnr_y_ens, ssim_ens),
+# rounded to 1e-4.
+# The same script scores the port on the CPU within 0.0104 dB and 3.2e-4 of
+# these (bf16 sums in another order); the card is held to RESCORE_*_TOL.
+ENSEMBLE_CROP = ("gt_6", (100, 164), (150, 214))
+JAX_ENSEMBLE_ROWS = {
+    "srresnet_x2": (27.6353, 29.0821, 0.8443,
+                   28.0027, 29.5034, 0.8536),
+    "srresnet128_x2": (27.9751, 29.3384, 0.8533,
+                      28.4172, 29.9644, 0.8635),
+    "rrdb_wide_x2": (29.8164, 30.4337, 0.8977,
+                    30.2499, 30.9425, 0.9035),
+    "srresnet128_x4": (22.6533, 23.1888, 0.5755,
+                      23.3382, 23.8915, 0.6095),
+    "rrdb_x4": (16.3783, 15.9821, 0.4012,
+               17.0173, 16.5808, 0.4348),
+}
+# A committed model served right scores a held-out tile at or near bicubic
+# (phase 17 (f) prints each plain PSNR beside bicubic's; the JAX package's
+# held-out rows on baboon and comic were -0.14 and +0.17 dB from bicubic for
+# results/quality_r2_x4_deep); a fault in loading or serving lands many dB
+# lower. Each plain PSNR of a model not in PRE_TRUNK_FIX_MODELS must reach
+# bicubic's less NEAR_BICUBIC_DB.
+NEAR_BICUBIC_DB = 1.5
+# rrdb_x4's file (results/quality_r2_x4_deep) was trained before the RRDB
+# trunk gained its scaled inner skip, which both packages' RRDBNet apply
+# today: both serve it about 10 dB under bicubic (ensemble_reference.py's
+# rrdb_x4_pre_fix_trunk; tests/test_torch_studies.py). Only its crop rows
+# against the JAX package's hold it.
+PRE_TRUNK_FIX_MODELS = ("rrdb_x4",)
+# jpg_noise_reference.py (scripts/jpg_noise_campaign.py's evaluate and
+# domain_gap, the committed models in bf16 on the CPU; PERF.md §6): on the 4
+# held-out tiles at each real-JPEG quality and clean. The same script scores
+# the port's campaign on the CPU: all 240 numbers within 0.003 dB of PSNR,
+# 0.004 dB of PSNR-Y and 1e-4 of SSIM of the JAX package's (the inputs are
+# byte-equal: only the convolutions' sums differ). The card is held to
+# RESCORE_*_TOL (phase 16's bounds: 12x and 10x the CPU's worst).
+# tile: quality: (noise r4, control r4, bicubic, noise r3), each (psnr, psnr_y, ssim)
+JAX_JPG_ROWS = {
+    "gt_1": {
+        "30": ((24.656, 25.43, 0.6723), (23.741, 24.649, 0.6237), (23.868, 24.806, 0.6274),
+              (23.543, 24.35, 0.6277)),
+        "50": ((25.443, 26.23, 0.7176), (24.523, 25.459, 0.6735), (24.463, 25.376, 0.6699),
+              (23.945, 24.732, 0.6567)),
+        "75": ((26.443, 27.312, 0.7742), (25.714, 26.718, 0.7426), (25.109, 25.954, 0.7172),
+              (24.241, 25.014, 0.6778)),
+        "90": ((27.128, 28.063, 0.8082), (27.461, 28.611, 0.8143), (25.633, 26.331, 0.7572),
+              (24.392, 25.142, 0.6893)),
+        "clean": ((27.341, 28.23, 0.818), (29.548, 29.99, 0.8979), (26.289, 26.473, 0.8153),
+              (24.483, 25.185, 0.6943)),
+    },
+    "gt_10": {
+        "30": ((29.038, 30.661, 0.8565), (25.863, 27.362, 0.7816), (26.207, 27.831, 0.7972),
+              (26.644, 28.699, 0.8113)),
+        "50": ((30.406, 32.132, 0.8838), (27.097, 28.68, 0.8169), (27.231, 28.825, 0.8302),
+              (27.379, 29.629, 0.8326)),
+        "75": ((31.653, 33.434, 0.9054), (28.937, 30.775, 0.8586), (28.439, 29.946, 0.866),
+              (27.934, 30.391, 0.8476)),
+        "90": ((32.537, 34.292, 0.92), (31.814, 34.019, 0.9056), (29.712, 30.788, 0.9014),
+              (28.216, 30.778, 0.8559)),
+        "clean": ((32.851, 34.406, 0.9273), (36.758, 37.307, 0.9707), (31.063, 31.11, 0.9483),
+              (28.248, 30.773, 0.8598)),
+    },
+    "gt_13": {
+        "30": ((26.774, 27.702, 0.7516), (24.818, 25.649, 0.7033), (25.014, 25.846, 0.7139),
+              (24.558, 25.628, 0.7014)),
+        "50": ((27.923, 28.923, 0.7922), (26.092, 27.011, 0.7548), (25.983, 26.825, 0.7598),
+              (25.176, 26.254, 0.7303)),
+        "75": ((28.981, 30.061, 0.8286), (27.721, 28.798, 0.8105), (27.023, 27.851, 0.8072),
+              (25.579, 26.669, 0.7525)),
+        "90": ((29.747, 30.893, 0.8594), (29.869, 31.075, 0.8738), (28.052, 28.724, 0.8576),
+              (25.884, 26.968, 0.7681)),
+        "clean": ((30.055, 31.116, 0.8727), (33.266, 33.534, 0.9474), (29.146, 29.163, 0.9086),
+              (25.973, 26.993, 0.7754)),
+    },
+    "gt_6": {
+        "30": ((24.848, 26.564, 0.6956), (22.542, 25.015, 0.5889), (22.814, 25.466, 0.6033),
+              (22.975, 25.519, 0.6092)),
+        "50": ((25.82, 27.685, 0.7395), (23.371, 26.087, 0.633), (23.526, 26.323, 0.6445),
+              (23.48, 26.219, 0.6398)),
+        "75": ((26.826, 28.848, 0.7795), (24.569, 27.629, 0.689), (24.525, 27.419, 0.6942),
+              (23.933, 26.85, 0.6646)),
+        "90": ((27.574, 29.776, 0.8091), (26.412, 29.994, 0.7676), (25.73, 28.408, 0.7564),
+              (24.234, 27.243, 0.6798)),
+        "clean": ((27.66, 29.738, 0.8171), (31.175, 32.362, 0.915), (28.205, 28.79, 0.878),
+              (24.364, 27.041, 0.6851)),
+    },
+}
+# tile: quality: (input DCT vs libjpeg, r4 noise model's output on libjpeg, on DCT)
+JAX_JPG_GAP = {
+    "gt_1": {"30": (42.71, 24.656, 24.648), "50": (43.32, 25.443, 25.449),
+              "75": (43.75, 26.443, 26.464), "90": (44.52, 27.128, 27.131)},
+    "gt_10": {"30": (41.57, 29.038, 29.037), "50": (43.04, 30.406, 30.405),
+              "75": (43.88, 31.653, 31.654), "90": (44.64, 32.537, 32.548)},
+    "gt_13": {"30": (40.76, 26.774, 26.778), "50": (42.56, 27.923, 27.93),
+              "75": (42.96, 28.981, 28.983), "90": (43.65, 29.747, 29.745)},
+    "gt_6": {"30": (41.05, 24.848, 24.843), "50": (41.6, 25.82, 25.82),
+              "75": (42.06, 26.826, 26.825), "90": (42.44, 27.574, 27.575)},
+}
+# The DCT-vs-libjpeg input PSNR, rounded to 2 digits by the campaign: the
+# libjpeg side is byte-equal by (a); the DCT degrade on the card stays within
+# a level of the JAX package's at under 1e-3 of the values
+# (tests/test_torch_pipeline.py). At the gap's 40-45 dB (MSE 1.4e-4 to
+# 3.4e-4 on [-1, 1]) a level (2 / 255) at 1e-3 of the values, on errors of
+# up to 5 levels, moves the MSE by at most 6.8e-7: 0.02 dB; with both
+# roundings, 0.03. The port on the CPU equals every JAX figure
+# (jpg_noise_reference.py).
+DOMAIN_GAP_TOL = 0.05
+ROWS_COLUMNS = ("noise_trained", "clean_control", "bicubic")
+
+
+def _encode_fixtures_phase(card):
+    """(a): every committed fixture's digest from the port's encoder, and
+    its speed on one thread."""
+    import hashlib
+
+    from simplesr_tpu_torch.data import native_loader
+    from simplesr_tpu_torch.data.image import read_rgb_u8
+
+    manifest = json.loads(JPEG_ENCODE_MANIFEST.read_text())
+    t = time.perf_counter()
+    native_loader.library()
+    build_s = time.perf_counter() - t
+    sources, wrong = {}, []
+    for entry in manifest["files"]:
+        if entry["source"] not in sources:
+            sources[entry["source"]] = read_rgb_u8(ROOT / entry["source"])
+        top, left, h, w = entry["crop"]
+        crop = np.ascontiguousarray(sources[entry["source"]][top:top + h, left:left + w])
+        got = native_loader.encode_jpeg(crop, entry["quality"])
+        if hashlib.sha256(got).hexdigest() != entry["sha256"] or len(got) != entry["bytes"]:
+            wrong.append(Path(entry["file"]).name)
+    img = read_rgb_u8(ENCODE_TIMING_IMAGE)
+    encode_ms = median_ms(lambda: native_loader.encode_jpeg(img, 75))
+    body = native_loader.encode_jpeg(img, 75)
+    decode_ms = median_ms(lambda: native_loader.decode_bytes(body))
+    mpix = img.shape[0] * img.shape[1] / 1e6
+    log(17, check="(a) the JPEG encoder against PIL's bytes", fixtures=len(manifest["files"]),
+        digests_equal=len(manifest["files"]) - len(wrong), wrong=wrong,
+        pil_reference=f"Pillow {manifest['pil']}, libjpeg-turbo {manifest['libjpeg_turbo']}",
+        library_ready_s=build_s, timing_image=ENCODE_TIMING_IMAGE.name, quality=75,
+        encode_ms=encode_ms, encode_mpix_per_s_one_thread=mpix / (encode_ms / 1e3),
+        decode_ms=decode_ms, decode_mpix_per_s_one_thread=mpix / (decode_ms / 1e3),
+        jpeg_bytes=len(body), runs=DECODE_RUNS, card=card)
+    if wrong:
+        raise AssertionError(f"the JPEG encoder's bytes differ from PIL's: {wrong}")
+
+
+def _rows_against_jax(r4, r3):
+    """The worst |port - JAX| of PSNR, PSNR-Y and SSIM over every row."""
+    worst = {"psnr": 0.0, "psnr_y": 0.0, "ssim": 0.0}
+    for tile, per_q in JAX_JPG_ROWS.items():
+        for q, (noise, control, bicubic, noise3) in per_q.items():
+            pairs = [(r4[tile][q]["noise_trained"], noise),
+                     (r4[tile][q]["clean_control"], control),
+                     (r4[tile][q]["bicubic"], bicubic),
+                     (r3[tile][q]["noise_trained"], noise3)]
+            for got, want in pairs:
+                for k, v in zip(("psnr", "psnr_y", "ssim"), want):
+                    worst[k] = max(worst[k], abs(got[k] - v))
+    return worst
+
+
+def _ensemble_crop_rows(ensemble_study, dev, work):
+    """Each committed model's ensemble-study row on ENSEMBLE_CROP, and its
+    worst |card - JAX| of the PSNR and of the SSIM figures."""
+    from simplesr_tpu_torch.data.image import read_rgb_u8
+    from simplesr_tpu_torch.data.png import write_png
+
+    tile, rows, cols = ENSEMBLE_CROP
+    img = read_rgb_u8(str(ROOT / "data/corpus/gallery" / f"{tile}.png"))
+    crop = work / "ensemble_crop.png"
+    write_png(crop, np.ascontiguousarray(img[slice(*rows), slice(*cols)]))
+    keys = ("psnr_plain", "psnr_y_plain", "ssim_plain", "psnr_ens", "psnr_y_ens", "ssim_ens")
+    saved = ensemble_study.HELDOUT
+    got, worst = {}, {}
+    try:
+        ensemble_study.HELDOUT = [str(crop)]
+        for name, (path, scale) in ensemble_study.MODELS.items():
+            (row,) = ensemble_study.eval_model(ROOT / path, scale, device=str(dev))
+            got[name] = [row[k] for k in keys]
+            want = JAX_ENSEMBLE_ROWS[name]
+            diffs = [abs(a - b) for a, b in zip(got[name], want)]
+            worst[name] = {"psnr": max(d for k, d in zip(keys, diffs) if "ssim" not in k),
+                           "ssim": max(d for k, d in zip(keys, diffs) if "ssim" in k)}
+    finally:
+        ensemble_study.HELDOUT = saved
+    return got, worst
+
+
+def _bicubic_psnr(ensemble_study, probe, scale, dev):
+    """Bicubic's PSNR on ``probe`` as the ensemble study makes its LR."""
+    from simplesr_tpu_torch.data.image import read_img
+    from simplesr_tpu_torch.ops.metrics import psnr
+    from simplesr_tpu_torch.ops.resize import resize
+
+    hr = torch.as_tensor(ensemble_study._even_crop(read_img(probe) / 255.0, scale),
+                         dtype=torch.float32).to(dev)
+    h, w = hr.shape[:2]
+    lr = resize(hr[None], (h // scale, w // scale), method="bicubic", antialias=True)
+    up = torch.clamp(resize(lr, (h, w), method="bicubic") * 2.0 - 1.0, -1.0, 1.0)
+    return float(psnr((hr * 2.0 - 1.0)[None], up, max_val=2.0)[0])
+
+
+def _denoise_yaml_runs(work, launches_by_path, card):
+    """(d): the denoising recipe from its YAML file, cut to the gallery and
+    1 epoch, with the file's fixed level and with the campaign's range."""
+    import simplesr_tpu_torch.data.pipeline as pipeline_mod
+    from simplesr_tpu_torch.config import _yaml
+    from simplesr_tpu_torch.tools import train as train_tool
+
+    gallery = ROOT / "data/corpus/gallery"
+    spec = _yaml.load(DENOISE_RECIPE)
+    reduced = {"train_data_paths": f"{spec['general']['train_data_paths']} -> {gallery} "
+                                   "(16 PNGs; the recipe's DIV2K is not in the repo)",
+               "results_save_path": "a temporary directory",
+               "num_epochs": f"{spec['general']['num_epochs']} -> {DENOISE_EPOCHS}",
+               "random_seed": "unset -> 0"}
+    kept = {k: spec["general"][k] for k in ("batch_size", "crop_size", "num_crops", "scale",
+                                            "augmentations", "train_val_split", "jpg_noise")}
+    log(17, check="(d) the denoising recipe", recipe=str(DENOISE_RECIPE.relative_to(ROOT)),
+        reduced=reduced, kept=kept, generator=spec["model"]["generator"],
+        levels=DENOISE_LEVELS)
+    results = {}
+    for label, level in DENOISE_LEVELS.items():
+        run = copy.deepcopy(spec)
+        run["general"].update(train_data_paths=str(gallery), num_epochs=DENOISE_EPOCHS,
+                              random_seed=0, jpg_noise_level=level,
+                              results_save_path=str(work / f"denoise_{label}"))
+        path = work / f"denoise_{label}.yaml"
+        path.write_text(_yaml.dump(run))
+        degrades = []  # (start event, end event, quality) of each call
+
+        def timed(original):
+            def wrapper(lr, quality, *a, **k):
+                start_ev = torch.cuda.Event(enable_timing=True)
+                end_ev = torch.cuda.Event(enable_timing=True)
+                start_ev.record()
+                out = original(lr, quality, *a, **k)
+                end_ev.record()
+                degrades.append((start_ev, end_ev, quality))
+                return out
+            return wrapper
+
+        calls, seen, epochs, waits, instrumented = run_instruments()
+        t = time.perf_counter()
+        with patched(pipeline_mod, "jpeg_degrade", timed):
+            code, launches = counted(lambda: instrumented(
+                lambda: train_tool.main([str(path)])))
+        run_s = time.perf_counter() - t
+        launches_by_path[f"denoise_yaml_{label}"] = launches
+        torch.cuda.synchronize()
+        degrade_ms = [a.elapsed_time(b) for a, b, _ in degrades]
+        ranged = [q for _, _, q in degrades if isinstance(q, torch.Tensor)]
+        qualities = torch.cat([q.float().cpu() for q in ranged]) if ranged else None
+        losses = seen["model"].histories()["train_epoch"]["generator_loss"]
+        epoch_s = [b - a for a, b in epochs]
+        wait_s = [sum(d for t0, d in waits if a <= t0 < b) for a, b in epochs]
+        steps = calls["train_step"]
+        result = {
+            "exit": code, "level": level, "calls": dict(calls), "launches": launches,
+            "epoch_loss": losses, "run_s": run_s, "epoch_s": epoch_s,
+            "step_ms_end_to_end": sum(epoch_s) / max(steps, 1) * 1e3,
+            "pipeline_wait_share": sum(wait_s) / sum(epoch_s),
+            "degrade_calls": len(degrades),
+            "degrade_device_ms_per_batch": {
+                "median": statistics.median(degrade_ms) if degrade_ms else None,
+                "max": max(degrade_ms, default=None)},
+            "qualities": ({"min": qualities.min().item(), "max": qualities.max().item(),
+                           "distinct": int(qualities.unique().numel())}
+                          if qualities is not None else
+                          sorted({float(q) for _, _, q in degrades}))}
+        results[label] = result
+        log(17, check=f"(d) denoising YAML run, {label} level", **result, card=card)
+        fixed_ok = label != "fixed" or result["qualities"] == [100.0 - level]
+        range_ok = label != "range" or (
+            qualities is not None and 100 - level[1] <= qualities.min().item()
+            and qualities.max().item() < 100 - level[0] and qualities.unique().numel() > 1)
+        if not (code == 0 and len(losses) == DENOISE_EPOCHS and all(np.isfinite(losses))
+                and steps > 0 and launches["trunk"] >= steps and len(degrades) >= steps
+                and fixed_ok and range_ok):
+            raise AssertionError(f"denoising YAML run ({label}): exit {code}, losses {losses}, "
+                                 f"calls {calls}, launches {launches}, "
+                                 f"{len(degrades)} degrades, qualities {result['qualities']}")
+    return results
+
+
+def denoising_phase(dev, work, launches_by_path, card):
+    """Phase 17: the denoising path (see the docstring)."""
+    from simplesr_tpu_torch import zoo
+    from simplesr_tpu_torch.tools import ema_study, ensemble_study
+    from simplesr_tpu_torch.tools import jpg_noise_campaign as jc
+    from simplesr_tpu_torch.tools import quality_campaign as qc
+    from simplesr_tpu_torch.train import Generator
+
+    start("17 denoising: the JPEG encoder, the committed denoising models, the DCT gap, "
+          "the denoising YAML, the JPEG-noise campaign, the ensemble and EMA studies")
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    # (a) the encoder
+    t = time.perf_counter()
+    _encode_fixtures_phase(card)
+    seconds["a"] = time.perf_counter() - t
+
+    # (b) the committed denoising models through the campaign's evaluate
+    t = time.perf_counter()
+    missing = [str(p.relative_to(ROOT)) for p in DENOISE_MODELS.values() if not p.exists()]
+    if missing:
+        raise AssertionError(f"committed denoising models missing: {missing}")
+    models = {k: Generator.srresnet(2, pretrained_model_path=p, device=dev)
+              for k, p in DENOISE_MODELS.items()}
+    saved = jc.DEVICE, jc.EVAL_TRAIN_IMGS, jc.HELDOUT_IMGS, jc.OUT_DIR
+    try:
+        jc.DEVICE, jc.EVAL_TRAIN_IMGS = str(dev), {}
+        jc.HELDOUT_IMGS = {k: str(ROOT / "data/corpus/gallery" / f"{k}.png")
+                           for k in JAX_JPG_ROWS}
+        r4, launches_r4 = counted(lambda: jc.evaluate(
+            models["round4_noise"], models["round4_control"], {})["images"])
+        r3, launches_r3 = counted(lambda: jc.evaluate(
+            models["round3_noise"], models["round4_control"], {})["images"])
+        launches_by_path["denoise_rescore_round4"] = launches_r4
+        launches_by_path["denoise_rescore_round3"] = launches_r3
+        worst = _rows_against_jax(r4, r3)
+        tol = {"psnr": RESCORE_PSNR_TOL, "psnr_y": RESCORE_PSNR_TOL, "ssim": RESCORE_SSIM_TOL}
+        log(17, check="(b) committed denoising models against the JAX package's rows",
+            models={k: str(p.relative_to(ROOT)) for k, p in DENOISE_MODELS.items()},
+            round4={n: {q: {c: r[q][c]["psnr"] for c in ROWS_COLUMNS} for q in r
+                        if q != "heldout"} for n, r in r4.items()},
+            round3_noise_psnr={n: {q: r[q]["noise_trained"]["psnr"] for q in r
+                                   if q != "heldout"} for n, r in r3.items()},
+            worst=worst, tol=tol, launches={"round4": launches_r4, "round3": launches_r3},
+            seconds=time.perf_counter() - t, card=card)
+        forwards = len(JAX_JPG_ROWS) * 5 * 2  # tiles x qualities x 2 models
+        if not (sorted(r4) == sorted(r3) == sorted(JAX_JPG_ROWS)
+                and all(worst[k] <= tol[k] for k in tol)):
+            raise AssertionError(f"denoising rows differ from the JAX package's: {worst} "
+                                 f"(bounds {tol})")
+        if min(launches_r4["trunk"], launches_r3["trunk"]) < forwards:
+            raise AssertionError(f"the re-score ran the trunk kernel less than once a forward: "
+                                 f"{launches_r4}, {launches_r3}")
+        seconds["b"] = time.perf_counter() - t
+
+        # (c) the DCT degrade against real JPEG on the card
+        t = time.perf_counter()
+        gap, launches = counted(lambda: jc.domain_gap(models["round4_noise"], {})["domain_gap"])
+        launches_by_path["denoise_domain_gap"] = launches
+        diffs = {k: 0.0 for k in ("input", "out_on_libjpeg", "out_on_dct")}
+        for tile, per_q in JAX_JPG_GAP.items():
+            for q, want in per_q.items():
+                row = gap[tile][q]
+                got = (row["input_dct_vs_libjpeg_psnr"], row["out_psnr_on_libjpeg"],
+                       row["out_psnr_on_dct"])
+                for k, a, b in zip(diffs, got, want):
+                    diffs[k] = max(diffs[k], abs(a - b))
+        log(17, check="(c) DCT degrade vs libjpeg on the card",
+            input_psnr={n: {q: r["input_dct_vs_libjpeg_psnr"] for q, r in g.items()}
+                        for n, g in gap.items()},
+            worst_vs_jax=diffs, tol={"input": DOMAIN_GAP_TOL, "outputs": RESCORE_PSNR_TOL},
+            launches=launches, seconds=time.perf_counter() - t, card=card)
+        if not (sorted(gap) == sorted(JAX_JPG_GAP) and diffs["input"] <= DOMAIN_GAP_TOL
+                and max(diffs["out_on_libjpeg"], diffs["out_on_dct"]) <= RESCORE_PSNR_TOL):
+            raise AssertionError(f"the domain gap differs from the JAX package's: {diffs}")
+        seconds["c"] = time.perf_counter() - t
+    finally:
+        jc.DEVICE, jc.EVAL_TRAIN_IMGS, jc.HELDOUT_IMGS, jc.OUT_DIR = saved
+
+    # (d) the denoising recipe from YAML, fixed level and range
+    t = time.perf_counter()
+    _denoise_yaml_runs(work, launches_by_path, card)
+    seconds["d"] = time.perf_counter() - t
+
+    # (e) the campaign at full width on a cut
+    t = time.perf_counter()
+    out = work / "jpg_campaign"
+    saved = jc.DEVICE, jc.OUT_DIR, jc.TRAIN_IMGS, jc.EVAL_TRAIN_IMGS, jc.HELDOUT_IMGS
+    saved_size = jc.FAST_SIZE
+    try:
+        jc.DEVICE, jc.OUT_DIR = str(dev), str(out)
+        jc.TRAIN_IMGS = {k: saved[2][k] for k in CAMPAIGN_TRAIN_TILES}
+        jc.EVAL_TRAIN_IMGS = {k: saved[2][k] for k in qc.corpus_split()[2]}
+        jc.FAST_SIZE = {}  # the --fast schedule at the production width
+        results, launches = counted(lambda: jc.main(fast=True))
+    finally:
+        jc.DEVICE, jc.OUT_DIR, jc.TRAIN_IMGS, jc.EVAL_TRAIN_IMGS, jc.HELDOUT_IMGS = saved
+        jc.FAST_SIZE = saved_size
+    launches_by_path["jpg_noise_campaign"] = launches
+    read_back = {r: zoo._heldout_metrics(out, r) for r in ("srresnet_jpg_rq", "srresnet_ctl")}
+    on_disk = json.loads((out / "RESULTS_jpg.json").read_text())
+    held = [k for k, v in on_disk["images"].items() if v["heldout"]]
+    log(17, check="(e) the JPEG-noise campaign",
+        cut={"train_tiles": list(CAMPAIGN_TRAIN_TILES), "schedule": "--fast (3 epochs, "
+             "12 crops a megapixel, 8 validation crops an image)", "width": "16 x 64"},
+        heldout_psnr={n: {q: {c: r[q][c]["psnr"] for c in ROWS_COLUMNS} for q in r
+                          if q != "heldout"} for n, r in on_disk["images"].items()},
+        zoo_read_back=read_back, launches=launches, seconds=time.perf_counter() - t,
+        card=card)
+    if not (on_disk == json.loads(json.dumps(results)) and len(held) == len(jc.HELDOUT_IMGS)
+            and all(v.get("heldout_images") == len(held) for v in read_back.values())
+            and read_back["srresnet_jpg_rq"].get("degraded_inputs") is True
+            and launches["trunk"] > 0):
+        raise AssertionError(f"the JPEG-noise campaign: held-out {held}, zoo {read_back}, "
+                             f"launches {launches}")
+    seconds["e"] = time.perf_counter() - t
+
+    # (f) the ensemble study over the committed models, and the EMA study
+    t = time.perf_counter()
+    report, launches = counted(lambda: ensemble_study.main(
+        ["--out", str(work / "ensemble"), "--device", str(dev)]))
+    launches_by_path["ensemble_study"] = launches
+    crop_rows, crop_worst = _ensemble_crop_rows(ensemble_study, dev, work)
+    bicubic = {(Path(probe).name, scale): _bicubic_psnr(ensemble_study, probe, scale, dev)
+               for probe in ensemble_study.HELDOUT for scale in (2, 4)}
+    to_bicubic = {
+        k: {r["probe"]: r["psnr_plain"] - bicubic[r["probe"], ensemble_study.MODELS[k][1]]
+            for r in rows} for k, rows in report["models"].items()}
+    log(17, check="(f) the ensemble study", models={
+        k: [{key: r[key] for key in ("probe", "psnr_plain", "psnr_ens", "dpsnr", "ssim_plain",
+                                     "ssim_ens")} for r in rows]
+        for k, rows in report["models"].items()}, cost=report["cost"],
+        plain_minus_bicubic_db=to_bicubic, near_bicubic_db=NEAR_BICUBIC_DB,
+        pre_trunk_fix_models=list(PRE_TRUNK_FIX_MODELS),
+        crop_rows_vs_jax={"crop": ENSEMBLE_CROP, "worst": crop_worst,
+                          "tol": {"psnr": RESCORE_PSNR_TOL, "ssim": RESCORE_SSIM_TOL}},
+        launches=launches, seconds=time.perf_counter() - t, card=card)
+    if not (sorted(report["models"]) == sorted(ensemble_study.MODELS)
+            and all(len(rows) == len(ensemble_study.HELDOUT) for rows in report["models"].values())
+            and report["cost"].get("timer") == "cuda_events" and launches["trunk"] > 0):
+        raise AssertionError(f"the ensemble study: {sorted(report['models'])}, cost "
+                             f"{report['cost']}, launches {launches}")
+    far = {k: d for k, d in to_bicubic.items()
+           if k not in PRE_TRUNK_FIX_MODELS and min(d.values()) < -NEAR_BICUBIC_DB}
+    if far:
+        raise AssertionError(f"the ensemble study: models more than {NEAR_BICUBIC_DB} dB under "
+                             f"bicubic on a held-out tile: {far}")
+    if not (sorted(crop_rows) == sorted(JAX_ENSEMBLE_ROWS)
+            and all(crop_worst[k]["psnr"] <= RESCORE_PSNR_TOL
+                    and crop_worst[k]["ssim"] <= RESCORE_SSIM_TOL for k in crop_worst)):
+        raise AssertionError(f"the ensemble study's crop rows differ from the JAX package's: "
+                             f"{crop_worst}")
+    seconds["f_ensemble"] = time.perf_counter() - t
+    t = time.perf_counter()
+    saved_train = qc.TRAIN_IMGS
+    try:
+        qc.TRAIN_IMGS = {k: saved_train[k] for k in CAMPAIGN_TRAIN_TILES}
+        ema, launches = counted(lambda: ema_study.main(
+            ["--epochs", str(EMA_EPOCHS), "--out", str(work / "ema"), "--device", str(dev)]))
+    finally:
+        qc.TRAIN_IMGS = saved_train
+    launches_by_path["ema_study"] = launches
+    log(17, check="(f) the EMA study", cut={"train_tiles": list(CAMPAIGN_TRAIN_TILES),
+                                            "epochs": EMA_EPOCHS},
+        history=ema["history"], summary=ema["summary"], launches=launches,
+        seconds=time.perf_counter() - t, card=card)
+    last = ema["history"][-1]
+    if not (len(ema["history"]) == EMA_EPOCHS
+            and sorted(last["raw"]) == sorted(qc.HELDOUT_GALLERY)
+            and all(np.isfinite(last[w][n]["psnr"]) for w in ("raw", "ema") for n in last["raw"])
+            and launches["trunk"] > 0):
+        raise AssertionError(f"the EMA study: {last}, launches {launches}")
+    seconds["f_ema"] = time.perf_counter() - t
+    log(17, parts_s=seconds, phase_s=time.perf_counter() - t_phase)
+
+
 def io_stderr(run):
     """What ``run()`` writes to stderr before it exits (argparse's error)."""
     import io
@@ -3667,6 +4189,7 @@ def main(work):
     host_loader = image_input_phase(dev, work, launches_by_path, smi_line, notes)
     keras_export_phase(dev, work, launches_by_path, smi_line, tiled_png)
     quality_phase(dev, work, launches_by_path, smi_line)
+    denoising_phase(dev, work, launches_by_path, smi_line)
     # the profilers of phases 7 to 10 and 12 last, after every timing
     for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan,
                     profile_surface):

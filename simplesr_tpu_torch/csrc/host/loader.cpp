@@ -1,8 +1,9 @@
 // Host image loader of the port: PNG and JPEG decoders of its own, a
 // byte-bounded LRU cache of decoded images and a thread pool that fills crop
 // batches, behind a plain C interface loaded with ctypes
-// (simplesr_tpu_torch/data/native_loader.py). No CUDA and no PyTorch header
-// is compiled; the only library linked is zlib.
+// (simplesr_tpu_torch/data/native_loader.py), which builds it into one
+// library with the JPEG encoder (jpeg_encode.cpp). No CUDA and no PyTorch
+// header is compiled; the only library linked is zlib.
 //
 // The decoders compute what the JAX package's decoders compute:
 //   - PNG as libpng with the JAX loader's transforms (simplesr_tpu/data/
@@ -1593,6 +1594,9 @@ size_t ssr_cached_images(void* loader) { return static_cast<Loader*>(loader)->ca
 
 // Why the calling thread's last failed call failed.
 const char* ssr_last_error(void) { return last_error.c_str(); }
+
+// The encoder's refusals (jpeg_encode.cpp) go where ssr_last_error reads.
+void ssr_set_last_error(const char* msg) { last_error = msg; }
 
 // Decode PNG or JPEG bytes to uint8 RGB in a buffer of malloc's, which the
 // caller frees with ssr_free. grey16: 0 the loader's high byte, 1 PIL's clip.

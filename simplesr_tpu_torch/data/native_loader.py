@@ -2,9 +2,11 @@
 as simplesr_tpu.data.native_loader binds the JAX package's.
 
 The library is built at first use with ``g++`` (``$CXX``, else ``g++`` on
-``PATH``) and linked against zlib; nothing of CUDA or PyTorch is compiled.
-It lives under the git-ignored ``simplesr_tpu_torch/_build/``, named by a
-hash of the source, the flags and the compiler (its path and version), and is written to a temporary file that
+``PATH``) from ``loader.cpp`` and the JPEG encoder ``jpeg_encode.cpp``, and
+linked against zlib; nothing of CUDA or PyTorch is compiled. It lives under
+the git-ignored ``simplesr_tpu_torch/_build/``, named by a hash of both
+sources, the flags and the compiler (its path and version), and is written
+to a temporary file that
 is renamed into place, so that several processes can build it at once. A
 failed build raises with the compiler's output: there is no fallback.
 
@@ -20,6 +22,13 @@ decoders refuse raises ``ImageDecodeError``, both the ``OSError`` of the JAX
 class and a ``ValueError``, with the decoder's reason (which names the
 format); a missing file raises ``FileNotFoundError``. ``decode_bytes``
 decodes bytes in memory, as the serving daemon and gateway take them.
+
+``encode_jpeg`` writes the bytes that Pillow 12.1 over libjpeg-turbo 3.1.3
+writes for ``Image.fromarray(u8).save(buf, "JPEG", quality=q)`` (baseline,
+4:2:0, ISLOW, the standard tables), and ``libjpeg_degrade`` is its round
+trip through ``decode_bytes``: the JPEG noise of the JAX package's campaign
+(scripts/jpg_noise_campaign.py: libjpeg_degrade_01), which reaches it
+through PIL.
 """
 
 import ctypes
@@ -34,6 +43,8 @@ import numpy as np
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 SOURCE = _PACKAGE / "csrc" / "host" / "loader.cpp"
+ENCODER_SOURCE = _PACKAGE / "csrc" / "host" / "jpeg_encode.cpp"
+SOURCES = (SOURCE, ENCODER_SOURCE)
 BUILD_DIR = _PACKAGE / "_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 LIBS = ("-lz",)
@@ -61,10 +72,11 @@ def find_cxx():
 
 
 def library_path():
-    """Where the library for the current source, flags and compiler lives."""
+    """Where the library for the current sources, flags and compiler lives."""
     key = (find_cxx(), compiler_version()) + CXX_FLAGS + LIBS
     digest = hashlib.sha256(" ".join(key).encode())
-    digest.update(SOURCE.read_bytes())
+    for source in SOURCES:
+        digest.update(source.read_bytes())
     return BUILD_DIR / f"ssr_host_loader_{digest.hexdigest()[:16]}.so"
 
 
@@ -75,13 +87,13 @@ def compiler_version():
 
 
 def build():
-    """Compile the source if its library is missing; return its path."""
+    """Compile the sources if their library is missing; return its path."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [find_cxx(), *CXX_FLAGS, str(SOURCE), "-o", str(tmp), *LIBS]
+    cmd = [find_cxx(), *CXX_FLAGS, *map(str, SOURCES), "-o", str(tmp), *LIBS]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
     except subprocess.TimeoutExpired as e:
@@ -113,6 +125,9 @@ def _bind(lib):
         "ssr_decode_image": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
                                             _intp, _intp, ctypes.POINTER(_u8p)]),
         "ssr_free": (None, [_u8p]),
+        "ssr_encode_jpeg": (ctypes.c_int, [_u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(_u8p),
+                                           ctypes.POINTER(ctypes.c_size_t)]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)
@@ -150,6 +165,48 @@ def decode_bytes(data, name="image", grey16="pil"):
         return np.ctypeslib.as_array(out, (h.value, w.value, 3)).copy()
     finally:
         lib.ssr_free(out)
+
+
+JPEG_MAX_DIMENSION = 65500  # libjpeg's
+
+
+def encode_jpeg(rgb_u8, quality):
+    """uint8 RGB (H, W, 3) -> the JPEG bytes Pillow writes at ``quality``
+    (an integer 0-100; 0 encodes as 1, as in libjpeg). Any other input is
+    refused with ``ValueError`` naming it: grey, RGBA or other channel
+    counts, a dtype other than uint8, an empty or oversized image, a
+    quality out of range."""
+    a = np.asarray(rgb_u8)
+    if a.dtype != np.uint8:
+        raise ValueError(f"encode_jpeg takes RGB uint8; got dtype {a.dtype}")
+    if a.ndim != 3 or a.shape[2] != 3:
+        mode = {2: "grey (H, W)"}.get(a.ndim) or \
+            (f"{a.shape[2]} channels" if a.ndim == 3 else f"{a.ndim} dimensions")
+        raise ValueError(f"encode_jpeg takes RGB (H, W, 3); got {mode}, shape {a.shape}")
+    h, w = a.shape[:2]
+    if not (1 <= h <= JPEG_MAX_DIMENSION and 1 <= w <= JPEG_MAX_DIMENSION):
+        raise ValueError(f"encode_jpeg: image of {w} x {h} pixels; baseline JPEG takes 1 to "
+                         f"{JPEG_MAX_DIMENSION} on each side")
+    if isinstance(quality, (bool, np.bool_)) or not isinstance(quality, (int, np.integer)) \
+            or not 0 <= quality <= 100:
+        raise ValueError(f"encode_jpeg: quality {quality!r} is out of range: it takes an "
+                         f"integer 0-100")
+    lib = library()
+    a = np.ascontiguousarray(a)
+    out, n = _u8p(), ctypes.c_size_t()
+    if lib.ssr_encode_jpeg(a.ctypes.data_as(_u8p), h, w, int(quality), ctypes.byref(out),
+                           ctypes.byref(n)):
+        raise ValueError(_last_error(lib))
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.ssr_free(out)
+
+
+def libjpeg_degrade(rgb_u8, quality):
+    """uint8 RGB through ``encode_jpeg`` and back through ``decode_bytes``:
+    PIL's JPEG round trip at ``quality``, pixel for pixel."""
+    return decode_bytes(encode_jpeg(rgb_u8, quality), name=f"JPEG at quality {quality}")
 
 
 class NativeLoader:

@@ -327,6 +327,10 @@ IMAGE_INPUT_MODULES = ["data/image.py", "data/native_loader.py", "data/png.py",
 # the quality tooling and the BMP decoder it reads
 QUALITY_MODULES = ["tools/quality_campaign.py", "tools/quality_check.py", "tools/gan_smoke.py",
                    "tools/standard_benchmarks.py", "data/bmp.py"]
+# the denoising path: the JPEG-noise campaign, the two studies and the
+# encoder's binding
+DENOISING_MODULES = ["tools/jpg_noise_campaign.py", "tools/ensemble_study.py",
+                     "tools/ema_study.py", "data/native_loader.py"]
 PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
                     "parallel/fsdp.py", "parallel/spatial.py", "parallel/tensor.py",
                     "parallel/pipeline.py"]
@@ -337,7 +341,8 @@ def test_port_imports_only_torch_numpy_and_stdlib():
     assert len(files) > 15
     assert {ROOT / "simplesr_tpu_torch" / m
             for m in GAN_MODULES + SERVING_MODULES + TRAINING_SURFACE_MODULES
-            + PARALLEL_MODULES + IMAGE_INPUT_MODULES + QUALITY_MODULES} <= set(files)
+            + PARALLEL_MODULES + IMAGE_INPUT_MODULES + QUALITY_MODULES
+            + DENOISING_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
@@ -377,7 +382,8 @@ def test_importing_the_port_initialises_no_backend():
                                    "zoo_load", "run_example", "evaluate_on_testdata",
                                    "engine_fast", "engine_ensemble", "build_distiller",
                                    "supervise", "quality_campaign", "quality_check",
-                                   "gan_smoke", "standard_benchmarks"])
+                                   "gan_smoke", "standard_benchmarks",
+                                   "jpg_noise_campaign", "ensemble_study", "ema_study"])
 def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -387,6 +393,7 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
     from simplesr_tpu_torch.eval.evaluation import evaluate_on_testdata
     from simplesr_tpu_torch.models import build_generator_model
     from simplesr_tpu_torch.tools import gan_smoke, quality_campaign, quality_check
+    from simplesr_tpu_torch.tools import ema_study, ensemble_study, jpg_noise_campaign
     from simplesr_tpu_torch.tools import standard_benchmarks
     from simplesr_tpu_torch.tools.http_gateway import serve_http
     from simplesr_tpu_torch.tools.run_example import main as run_example_main
@@ -435,7 +442,11 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
              "gan_smoke": lambda: gan_smoke.main(steps=1, tiny=True),
              "standard_benchmarks": lambda: standard_benchmarks.main(
                  ["--data-root", str(sets), "--models", small_model, "--out",
-                  str(tmp_path / "results")])}
+                  str(tmp_path / "results")]),
+             "jpg_noise_campaign": lambda: jpg_noise_campaign.main(fast=True),
+             "ensemble_study": lambda: ensemble_study.main(["--out", str(tmp_path / "results")]),
+             "ema_study": lambda: ema_study.main(["--epochs", "1", "--out",
+                                                 str(tmp_path / "results")])}
     sets = tmp_path / "sets"
     (sets / "Set5").mkdir(parents=True)
     shutil.copy(GALLERY[0], sets / "Set5" / GALLERY[0].name)
@@ -448,6 +459,24 @@ def test_entry_points_raise_without_cuda(entry, small_model, tmp_path):
         calls[entry]()
     assert not (tmp_path / "results").exists() or entry == "run_training"
     assert not (tmp_path / "sr.sock").exists()
+
+
+def test_jpeg_encoder_binding_is_host_code():
+    """``ssr_encode_jpeg`` (csrc/host/jpeg_encode.cpp) is built into the host
+    loader's library with g++, bound through ctypes and freed by
+    ``ssr_free``; it compiles no CUDA header and runs without a card."""
+    import ctypes
+
+    from simplesr_tpu_torch.data import native_loader
+
+    source = (ROOT / "simplesr_tpu_torch/csrc/host/jpeg_encode.cpp").read_text()
+    assert "cuda" not in " ".join(l for l in source.splitlines() if l.startswith("#include"))
+    assert native_loader.ENCODER_SOURCE in native_loader.SOURCES
+    lib = native_loader.library()
+    assert lib.ssr_encode_jpeg.restype is ctypes.c_int and len(lib.ssr_encode_jpeg.argtypes) == 6
+    body = native_loader.encode_jpeg(np.zeros((3, 5, 3), np.uint8), 50)
+    assert body[:2] == b"\xff\xd8" and body[-2:] == b"\xff\xd9"
+    np.testing.assert_array_equal(native_loader.decode_bytes(body), np.zeros((3, 5, 3)))
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
