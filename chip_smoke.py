@@ -285,12 +285,24 @@ plain PyTorch version, in one process, with no arguments:
      rows on ENSEMBLE_CROP within RESCORE_*_TOL of the JAX package's
      (JAX_ENSEMBLE_ROWS, from ensemble_reference.py); and
      ``tools/ema_study`` for 1 epoch on the same 4 training tiles. A
-     missing committed model fails the phase.
+     missing committed model fails the phase;
+ 18. the image formats the JAX package opens through PIL beside PNG and
+     JPEG: (a) every fixture of data/corpus/image_formats (WebP, GIF,
+     TIFF, netpbm, RLE BMP) decodes on the card's host to its manifest's
+     digest of PIL's decode, each refused variant refused naming it, and
+     each decoder's one-thread MPix/s on the same 96 x 128 gallery tile
+     (median of DECODE_RUNS), beside the PNG and JPEG decoders' on that
+     tile (the port's encoders write them); (b) the daemon and the gateway
+     serve the tile as lossy and lossless WebP, GIF, LZW TIFF, PPM and RLE8
+     BMP bodies, each with the launch counts set to 0 just before and read
+     just after: every reply bit-equal to ``upscale_files`` of the same
+     file, one trunk launch a body; (c) a truncated WebP body gets status 1
+     and HTTP 400, naming WebP.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
 Prints one JSON object per phase, then the host loader's line (phase 14's
-summary; it is no TPU kernel), the kernels' JSON line, and last
+and phase 18's summaries; they are no TPU kernels), the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``. Any failure prints its traceback and exits
 non-zero without that line; without a CUDA device it exits 2 at once.
 """
@@ -3890,6 +3902,155 @@ def denoising_phase(dev, work, launches_by_path, card):
     log(17, parts_s=seconds, phase_s=time.perf_counter() - t_phase)
 
 
+# ------------------------------------------------------------------ phase 18
+# The formats PIL opens for the JAX package beside PNG and JPEG: host
+# decoders of the port's own (csrc/host/webp.cpp, gif.cpp, tiff.cpp;
+# data/pnm.py, data/bmp.py), held to the digests of PIL's decodes that the
+# corpus's manifest keeps (there is no PIL here), timed, and served.
+
+FORMATS_MANIFEST = ROOT / "data/corpus/image_formats/MANIFEST.json"
+FORMAT_BODIES = {"webp_lossy": "timing_webp_lossy.webp",
+                 "webp_lossless": "timing_webp_lossless.webp", "gif": "timing_gif.gif",
+                 "tiff_lzw": "timing_tiff_lzw.tif", "ppm": "timing_ppm.ppm",
+                 "bmp_rle8": "timing_bmp_rle8.bmp"}
+
+
+def image_formats_phase(dev, work, launches_by_path, card):
+    """Phase 18: the image formats (see the docstring). Returns the
+    decoders' summary, which ``main`` prints with the host loader's."""
+    import hashlib
+
+    from simplesr_tpu_torch.data.image import decode_image
+    from simplesr_tpu_torch.data.native_loader import encode_jpeg
+    from simplesr_tpu_torch.data.png import decode_png, encode_png, read_png
+    from simplesr_tpu_torch.tools import serve as serve_mod
+    from simplesr_tpu_torch.tools.http_gateway import serve_http
+    from simplesr_tpu_torch.tools.upscale import upscale_files
+
+    start("18 image formats: WebP, GIF, TIFF, netpbm and RLE BMP decoded, timed and served")
+    t_phase = time.perf_counter()
+
+    # (a) every fixture against its digest of PIL's decode, the refusals
+    manifest = json.loads(FORMATS_MANIFEST.read_text())
+    wrong, counts = [], {}
+    for entry in manifest["files"]:
+        data = (ROOT / entry["file"]).read_bytes()
+        try:
+            got = hashlib.sha256(decode_image(data, entry["file"]).tobytes()).hexdigest()
+            ok = "refused" not in entry and got == entry["sha256_pil_rgb"]
+        except ValueError as e:
+            ok = "refused" in entry and entry["refused"] in str(e)
+        if not ok:
+            wrong.append(entry["file"])
+        kind = "refused" if "refused" in entry else entry["format"]
+        counts[kind] = counts.get(kind, 0) + 1
+    folder = FORMATS_MANIFEST.parent
+    tile = decode_image((folder / FORMAT_BODIES["ppm"]).read_bytes())
+    bodies = {"png": encode_png(tile), "jpeg_q90": encode_jpeg(tile, 90)}
+    bodies.update({k: (folder / f).read_bytes() for k, f in FORMAT_BODIES.items()})
+    mpix = tile.shape[0] * tile.shape[1] / 1e6
+    rates = {}
+    for kind, body in bodies.items():
+        ms = median_ms(lambda: decode_image(body, kind))
+        rates[kind] = {"ms": ms, "mpix_per_s": mpix / ms * 1e3, "bytes": len(body)}
+    log(18, check="(a) the corpus against its manifest's digests of PIL's decode, and each "
+        f"decoder on one thread (median of {DECODE_RUNS}) on a {tile.shape[0]} x "
+        f"{tile.shape[1]} gallery tile", files=counts, pil=manifest["pil"], wrong=wrong,
+        decode=rates, card=card)
+    if wrong:
+        raise AssertionError(f"fixtures decoded unlike PIL: {wrong}")
+
+    # (b) the daemon and the gateway against upscale_files, (c) a truncated WebP
+    serve_dir = work / "formats_serve"
+    serve_dir.mkdir()
+    paths = []
+    for kind, name in FORMAT_BODIES.items():
+        path = serve_dir / f"{kind}{Path(name).suffix}"
+        path.write_bytes(bodies[kind])
+        paths.append(path)
+    refs = [read_png(p) for p in upscale_files(FLAGSHIP, paths, serve_dir / "ref", 4,
+                                               device=dev)]
+    broken = bodies["webp_lossy"][:len(bodies["webp_lossy"]) // 2]
+    cwd = os.getcwd()
+    os.chdir(serve_dir)  # a short, relative socket path
+    ready, stop = threading.Event(), threading.Event()
+    server = threading.Thread(target=serve_mod.serve, args=(FLAGSHIP, 4), daemon=True,
+                              kwargs=dict(socket_path="sr.sock", ready_event=ready,
+                                          stop_event=stop, device=dev))
+    server.start()
+    try:
+        if not ready.wait(300):
+            raise AssertionError("the daemon did not become ready")
+
+        def session():
+            with serve_mod.SRClient("sr.sock") as client:
+                outs = [client.upscale_file(p) for p in paths]
+                try:
+                    client.upscale_bytes(broken)
+                    stub = "status 0"
+                except serve_mod.SRError as e:
+                    stub = str(e)
+            return outs, stub
+
+        (daemon_outs, daemon_stub), daemon_launches = counted(session)
+    finally:
+        stop.set()
+        server.join(timeout=60)
+        os.chdir(cwd)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # localhost only
+
+    def post(url, body):
+        try:
+            with opener.open(urllib.request.Request(url, data=body), timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    ready, stop, box = threading.Event(), threading.Event(), {}
+    gateway = threading.Thread(target=serve_http, args=(FLAGSHIP, 4, 0), daemon=True, kwargs=dict(
+        ready_event=ready, stop_event=stop, on_server=lambda srv: box.update(s=srv), device=dev))
+    gateway.start()
+    try:
+        if not ready.wait(300):
+            raise AssertionError("the gateway did not become ready")
+        url = f"http://127.0.0.1:{box['s'].server_address[1]}/upscale"
+        replies, http_launches = counted(lambda: [post(url, p.read_bytes()) for p in paths])
+        broken_code, broken_body = post(url, broken)
+    finally:
+        stop.set()
+        gateway.join(timeout=60)
+    launches_by_path["daemon_image_formats_session"] = daemon_launches
+    launches_by_path["http_gateway_image_formats_posts"] = http_launches
+    gateway_outs = [decode_png(body) if code == 200 else None for code, body in replies]
+    result = {
+        "bodies": list(FORMAT_BODIES),
+        "daemon_bit_equal": [np.array_equal(o, r) for o, r in zip(daemon_outs, refs)],
+        "gateway_status": [code for code, _ in replies],
+        "gateway_bit_equal": [o is not None and np.array_equal(o, r)
+                              for o, r in zip(gateway_outs, refs)],
+        "truncated_webp": {"daemon": daemon_stub,
+                           "gateway": [broken_code, broken_body.decode()[:120]]},
+        "launches": {"daemon": daemon_launches, "gateway": http_launches},
+        "stopped": not (server.is_alive() or gateway.is_alive())}
+    log(18, check="(b, c) serving each format's body, and a truncated WebP", **result,
+        phase_s=time.perf_counter() - t_phase, card=card)
+    want = {"trunk": len(paths), "patches": 0}
+    if not (all(result["daemon_bit_equal"]) and all(result["gateway_bit_equal"])
+            and "WebP" in daemon_stub and broken_code == 400 and b"WebP" in broken_body
+            and result["stopped"] and daemon_launches == want and http_launches == want):
+        raise AssertionError(f"serving the image formats: {result}")
+    return {"name": "host image-format decoders", "route": "host C++ (g++, zlib) and numpy",
+            "source": ["simplesr_tpu_torch/csrc/host/webp.cpp",
+                       "simplesr_tpu_torch/csrc/host/gif.cpp",
+                       "simplesr_tpu_torch/csrc/host/tiff.cpp",
+                       "simplesr_tpu_torch/data/pnm.py", "simplesr_tpu_torch/data/bmp.py"],
+            "replaces": "PIL's convert('RGB') (simplesr_tpu/data/pipeline.py:57-72, "
+                        "simplesr_tpu/tools/serve.py:319, simplesr_tpu/tools/http_gateway.py:90)",
+            "fixtures": counts, "tile": list(tile.shape),
+            "one_thread_mpix_per_s": {k: v["mpix_per_s"] for k, v in rates.items()},
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def io_stderr(run):
     """What ``run()`` writes to stderr before it exits (argparse's error)."""
     import io
@@ -4190,6 +4351,7 @@ def main(work):
     keras_export_phase(dev, work, launches_by_path, smi_line, tiled_png)
     quality_phase(dev, work, launches_by_path, smi_line)
     denoising_phase(dev, work, launches_by_path, smi_line)
+    image_formats = image_formats_phase(dev, work, launches_by_path, smi_line)
     # the profilers of phases 7 to 10 and 12 last, after every timing
     for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan,
                     profile_surface):
@@ -4227,7 +4389,7 @@ def main(work):
          "bound_by": "bytes", "bound_share": patch_bound / patch_ms,
          "resources": _build.kernel_attributes("ssr_patches_attributes")},
     ]
-    print(json.dumps({"host_loader": host_loader}), flush=True)
+    print(json.dumps({"host_loader": host_loader, "image_formats": image_formats}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

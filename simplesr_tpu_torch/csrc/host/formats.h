@@ -1,0 +1,56 @@
+// The host decoders of the formats that the JAX package opens through PIL
+// beside PNG and JPEG: WebP (webp.cpp), GIF (gif.cpp) and TIFF (tiff.cpp).
+// Each decodes the first image of a file in memory to 8-bit RGB as PIL 12.1's
+// Image.open(...).convert("RGB") gives it, and throws FormatError, naming the
+// format, for a file it refuses. loader.cpp dispatches to them by magic bytes.
+//
+// Every length, offset and code read from the file is checked against the
+// buffer before it is used: request bodies come from outside the program.
+
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+namespace ssr {
+
+// PIL's refusal (DecompressionBombError): twice its MAX_IMAGE_PIXELS, as in
+// simplesr_tpu_torch/data/png.py.
+constexpr uint64_t kMaxPixels = 2ull * (1024ull * 1024 * 1024 / 4 / 3);
+
+// Where the refused variants are queued.
+constexpr const char* kFormatsItem = "ROADMAP.md, Queue 1, item 3";
+
+struct FormatError : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+[[noreturn]] inline void format_fail(const char* fmt, const std::string& msg) {
+  throw FormatError(std::string(fmt) + ": " + msg);
+}
+
+inline void check_image_pixels(const char* fmt, uint64_t w, uint64_t h) {
+  if ((w ? w : 1) * (h ? h : 1) > kMaxPixels)
+    format_fail(fmt, "image of " + std::to_string(w) + " x " + std::to_string(h) +
+                         " pixels exceeds the limit of " + std::to_string(kMaxPixels) +
+                         " pixels (a decompression bomb?)");
+}
+
+struct RgbImage {
+  int h = 0, w = 0;
+  std::vector<uint8_t> rgb;  // h * w * 3
+  size_t bytes() const { return rgb.size(); }
+};
+
+bool is_webp(const uint8_t* d, size_t n);
+bool is_gif(const uint8_t* d, size_t n);
+bool is_tiff(const uint8_t* d, size_t n);
+
+void decode_webp(const uint8_t* d, size_t n, RgbImage* out);
+void decode_gif(const uint8_t* d, size_t n, RgbImage* out);
+void decode_tiff(const uint8_t* d, size_t n, RgbImage* out);
+
+}  // namespace ssr

@@ -2,7 +2,8 @@
 // byte-bounded LRU cache of decoded images and a thread pool that fills crop
 // batches, behind a plain C interface loaded with ctypes
 // (simplesr_tpu_torch/data/native_loader.py), which builds it into one
-// library with the JPEG encoder (jpeg_encode.cpp). No CUDA and no PyTorch
+// library with the JPEG encoder (jpeg_encode.cpp) and the WebP, GIF and TIFF
+// decoders (webp.cpp, gif.cpp, tiff.cpp; formats.h). No CUDA and no PyTorch
 // header is compiled; the only library linked is zlib.
 //
 // The decoders compute what the JAX package's decoders compute:
@@ -26,6 +27,8 @@
 
 #include <zlib.h>
 
+#include "formats.h"
+
 #include <algorithm>
 #include <condition_variable>
 #include <cstdint>
@@ -45,9 +48,6 @@
 
 namespace {
 
-// PIL's refusal (DecompressionBombError): twice its MAX_IMAGE_PIXELS, as in
-// simplesr_tpu_torch/data/png.py.
-constexpr uint64_t kMaxPixels = 2ull * (1024ull * 1024 * 1024 / 4 / 3);
 constexpr int GREY16_HIGH_BYTE = 0;
 constexpr int GREY16_CLIP = 1;
 const char* kUnsupportedItem = "ROADMAP.md, Queue 1, JPEG variants";
@@ -58,18 +58,9 @@ struct DecodeError : std::runtime_error {
 
 [[noreturn]] void fail(const std::string& msg) { throw DecodeError(msg); }
 
-struct Image {
-  int h = 0, w = 0;
-  std::vector<uint8_t> rgb;  // h * w * 3
-  size_t bytes() const { return rgb.size(); }
-};
+using Image = ssr::RgbImage;
 
-void check_pixels(const char* fmt, uint64_t w, uint64_t h) {
-  if (std::max<uint64_t>(w, 1) * std::max<uint64_t>(h, 1) > kMaxPixels)
-    fail(std::string(fmt) + ": image of " + std::to_string(w) + " x " + std::to_string(h) +
-         " pixels exceeds the limit of " + std::to_string(kMaxPixels) +
-         " pixels (a decompression bomb?)");
-}
+using ssr::check_image_pixels;  // PIL's decompression-bomb refusal (formats.h)
 
 uint32_t be32(const uint8_t* p) {
   return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) | (uint32_t(p[2]) << 8) | p[3];
@@ -236,7 +227,7 @@ void decode_png(const uint8_t* data, size_t n, int grey16, Image* out) {
              std::to_string(depth));
       if (body[10] != 0 || body[11] != 0 || interlace > 1)
         fail("PNG: invalid compression, filter or interlace method in IHDR");
-      check_pixels("PNG", width, height);
+      check_image_pixels("PNG", width, height);
       have_header = true;
       continue;
     }
@@ -893,7 +884,7 @@ class JpegDecoder {
     if (nc > 10) fail("JPEG: too many colour components");
     if (nc != 1 && nc != 3 && nc != 4)
       fail("JPEG: " + std::to_string(nc) + "-component images are not decoded");
-    check_pixels("JPEG", uint64_t(width_), uint64_t(height_));
+    check_image_pixels("JPEG", uint64_t(width_), uint64_t(height_));
     maxh_ = maxv_ = 1;
     for (auto& c : comps_) {
       if (c.h <= 0 || c.h > 4 || c.v <= 0 || c.v > 4) fail("JPEG: bogus sampling factors");
@@ -1352,8 +1343,14 @@ void decode_bytes(const uint8_t* data, size_t n, int grey16, Image* out) {
     decode_png(data, n, grey16, out);
   } else if (n >= 2 && data[0] == 0xFF && data[1] == 0xD8) {
     JpegDecoder(data, n).decode(out);
+  } else if (ssr::is_webp(data, n)) {
+    ssr::decode_webp(data, n, out);
+  } else if (ssr::is_gif(data, n)) {
+    ssr::decode_gif(data, n, out);
+  } else if (ssr::is_tiff(data, n)) {
+    ssr::decode_tiff(data, n, out);
   } else {
-    fail("not a PNG or JPEG file");
+    fail("not a PNG, JPEG, WebP, GIF or TIFF file");
   }
 }
 
@@ -1598,8 +1595,9 @@ const char* ssr_last_error(void) { return last_error.c_str(); }
 // The encoder's refusals (jpeg_encode.cpp) go where ssr_last_error reads.
 void ssr_set_last_error(const char* msg) { last_error = msg; }
 
-// Decode PNG or JPEG bytes to uint8 RGB in a buffer of malloc's, which the
-// caller frees with ssr_free. grey16: 0 the loader's high byte, 1 PIL's clip.
+// Decode PNG, JPEG, WebP, GIF or TIFF bytes to uint8 RGB in a buffer of
+// malloc's, which the caller frees with ssr_free. grey16: 0 the loader's high
+// byte, 1 PIL's clip.
 // Returns 0, or 1 with the reason in ssr_last_error.
 int ssr_decode_image(const uint8_t* data, size_t n, int grey16, int* h, int* w,
                      uint8_t** out) {

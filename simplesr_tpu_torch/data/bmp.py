@@ -7,11 +7,20 @@ Windows headers, bottom-up and top-down rows (a negative height), rows
 padded to 4 bytes, 1-, 4- and 8-bit palettes (a palette that is the grey
 ramp reads as grey, as PIL reads it as mode "L"), 16-bit 5-5-5, 24-bit and
 32-bit BI_RGB (the fourth byte ignored), and BI_BITFIELDS with the masks
-PIL accepts. RLE and the other compressions raise ``ValueError``; so does a
-file that PIL refuses or that ends early. Host work only.
+PIL accepts, and RLE8 and RLE4 as PIL's ``BmpRleDecoder`` reads them
+(escapes for end of line, end of bitmap and delta, absolute runs aligned to
+an even file offset, pixels it skips left at palette index 0). PIL 12.1's
+delta escape reads four bytes and moves by the last two; an odd absolute
+RLE4 run gives one pixel fewer than its count; both are read as PIL reads
+them. JPEG, PNG and ALPHABITFIELDS compressions raise ``ValueError`` naming
+the roadmap item; so does a file that PIL refuses or that ends early
+(PIL also refuses an RLE bitmap that ends before its last pixel). Host work
+only.
 """
 
 import numpy as np
+
+from simplesr_tpu_torch.data.png import _check_pixels
 
 BMP_MAGIC = b"BM"
 UNSUPPORTED_ITEM = "ROADMAP.md, Queue 1, item 3"
@@ -50,6 +59,77 @@ def _channel(pixels, mask):
     return (v * 255 // ((1 << bits) - 1)).astype(np.uint8)
 
 
+def _paletted(idx, data, pos, entry, colors, name, rle=False):
+    """Palette indices (H, W) -> RGB through the file's palette at ``pos``."""
+    if not 0 < colors <= 256:  # PIL's palettes hold 256 entries at most
+        raise ValueError(f"{name}: unsupported BMP palette size {colors}")
+    pal = np.frombuffer(data[pos:pos + entry * colors], np.uint8)
+    if pal.size != entry * colors:
+        raise ValueError(f"{name}: truncated BMP palette")
+    pal = pal.reshape(colors, entry)[:, 2::-1]  # BGR(X) -> RGB
+    ramp = (0, 255) if colors == 2 else range(colors)
+    if all(tuple(pal[i]) == (v, v, v) for i, v in enumerate(ramp)):
+        if rle and colors == 2:  # PIL has no "P" rawmode into its mode "1"
+            raise ValueError(f"{name}: BMP RLE with a black-and-white palette is not "
+                             f"supported ({UNSUPPORTED_ITEM})")
+        # PIL reads a grey-ramp palette as mode "1" or "L": the index is the value
+        grey = (idx * 255 if colors == 2 else idx).astype(np.uint8)
+        return np.repeat(grey[:, :, None], 3, axis=2)
+    full = np.zeros((256, 3), np.uint8)  # an index past the palette reads black
+    full[:min(colors, 256)] = pal[:256]
+    return full[idx]
+
+
+def _rle_indices(data, offset, width, height, rle4, name):
+    """The palette indices of an RLE8 or RLE4 bitmap, rows in file order, as
+    PIL's BmpRleDecoder produces them."""
+    dest = width * height
+    out = bytearray()
+    x, pos, n = 0, offset, len(data)
+    while len(out) < dest:
+        if pos + 2 > n:
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:  # a run of one byte (two alternating nibbles in RLE4)
+            count = max(0, min(count, width - x))
+            if rle4:
+                out += bytes((byte >> 4, byte & 0x0F)) * (count // 2) + \
+                    (bytes((byte >> 4,)) if count % 2 else b"")
+            else:
+                out += bytes((byte,)) * count
+            x += count
+        elif byte == 0:  # end of line
+            out += bytes(-len(out) % width)
+            x = 0
+        elif byte == 1:  # end of bitmap
+            break
+        elif byte == 2:  # delta: PIL reads two bytes, then moves by the next two
+            if pos + 2 > n:
+                break
+            if pos + 4 > n:
+                raise ValueError(f"{name}: truncated BMP RLE delta")
+            right, up = data[pos + 2], data[pos + 3]
+            pos += 4
+            out += bytes(min(right + up * width, dest - len(out)))  # no further than the end
+            x = len(out) % width
+        else:  # an absolute run, then to an even offset in the file
+            take = byte // 2 if rle4 else byte
+            chunk = data[pos:pos + take]
+            pos += len(chunk)
+            if rle4:
+                out += bytes(v for b in chunk for v in (b >> 4, b & 0x0F))
+            else:
+                out += chunk
+            if len(chunk) < take:
+                break
+            x += byte
+            pos += pos % 2
+    if len(out) < dest:
+        raise ValueError(f"{name}: the BMP RLE data ends before the image is complete")
+    return np.frombuffer(bytes(out[:dest]), np.uint8).reshape(height, width)
+
+
 def decode_bmp(data, name="image"):
     """BMP bytes -> uint8 RGB (H, W, 3)."""
     data = bytes(data)
@@ -72,15 +152,20 @@ def decode_bmp(data, name="image"):
         if top_down:
             height = 2 ** 32 - height
         bits, compression, colors, entry = _u16(head, 10), _u32(head, 12), _u32(head, 28), 4
-    if compression in _COMPRESSION_NAMES:
+    rle = compression in (_RLE8, _RLE4)
+    if compression in _COMPRESSION_NAMES and not rle:
         raise ValueError(f"{name}: BMP {_COMPRESSION_NAMES[compression]} compression is not "
                          f"supported ({UNSUPPORTED_ITEM})")
-    if compression not in (_RAW, _BITFIELDS):
+    if compression not in (_RAW, _BITFIELDS) and not rle:
         raise ValueError(f"{name}: unsupported BMP compression {compression}")
+    if rle and bits not in (4, 8):
+        raise ValueError(f"{name}: BMP {_COMPRESSION_NAMES[compression]} compression of "
+                         f"{bits}-bit pixels is not supported ({UNSUPPORTED_ITEM})")
     if bits not in (1, 4, 8, 16, 24, 32):
         raise ValueError(f"{name}: unsupported BMP pixel depth {bits}")
     if width <= 0 or height <= 0:
         raise ValueError(f"{name}: bad BMP size {width} x {height}")
+    _check_pixels(name, width, height)
 
     masks = None
     if compression == _BITFIELDS:
@@ -101,6 +186,12 @@ def decode_bmp(data, name="image"):
     if offset == pos and bits <= 8:
         offset += 4 * colors  # PIL's reading of a pixel offset that forgot the palette
 
+    if rle:
+        idx = _rle_indices(data, offset, width, height, compression == _RLE4, name)
+        if not top_down:
+            idx = idx[::-1]
+        return _paletted(idx, data, pos, entry, colors, name, rle=True)
+
     stride = ((width * bits + 31) >> 3) & ~3
     if offset + stride * height > len(data):
         raise ValueError(f"{name}: truncated BMP pixel data")
@@ -110,23 +201,10 @@ def decode_bmp(data, name="image"):
         rows = rows[::-1]
 
     if bits <= 8:
-        if not 0 < colors <= 65536:
-            raise ValueError(f"{name}: unsupported BMP palette size {colors}")
-        pal = np.frombuffer(data[pos:pos + entry * colors], np.uint8)
-        if pal.size != entry * colors:
-            raise ValueError(f"{name}: truncated BMP palette")
-        pal = pal.reshape(colors, entry)[:, 2::-1]  # BGR(X) -> RGB
         idx = np.unpackbits(rows, axis=1)[:, :width * bits] if bits < 8 else rows[:, :width]
         if bits < 8:
             idx = idx.reshape(height, width, bits) @ (1 << np.arange(bits - 1, -1, -1))
-        ramp = (0, 255) if colors == 2 else range(colors)
-        if all(tuple(pal[i]) == (v, v, v) for i, v in enumerate(ramp)):
-            # PIL reads a grey-ramp palette as mode "1" or "L": the index is the value
-            grey = (idx * 255 if colors == 2 else idx).astype(np.uint8)
-            return np.repeat(grey[:, :, None], 3, axis=2)
-        full = np.zeros((256, 3), np.uint8)  # an index past the palette reads black
-        full[:min(colors, 256)] = pal[:256]
-        return full[idx]
+        return _paletted(idx, data, pos, entry, colors, name)
     if bits == 24:
         return np.ascontiguousarray(rows[:, :3 * width].reshape(height, width, 3)[:, :, ::-1])
     if bits == 32 and masks is None:

@@ -2,13 +2,15 @@
 as simplesr_tpu.data.native_loader binds the JAX package's.
 
 The library is built at first use with ``g++`` (``$CXX``, else ``g++`` on
-``PATH``) from ``loader.cpp`` and the JPEG encoder ``jpeg_encode.cpp``, and
-linked against zlib; nothing of CUDA or PyTorch is compiled. It lives under
-the git-ignored ``simplesr_tpu_torch/_build/``, named by a hash of both
-sources, the flags and the compiler (its path and version), and is written
-to a temporary file that
-is renamed into place, so that several processes can build it at once. A
-failed build raises with the compiler's output: there is no fallback.
+``PATH``) from ``loader.cpp``, the JPEG encoder ``jpeg_encode.cpp`` and the
+WebP, GIF and TIFF decoders (``webp.cpp``, ``gif.cpp``, ``tiff.cpp``, with
+their header ``formats.h``), and linked against zlib; nothing of CUDA or
+PyTorch is compiled. It lives under the git-ignored
+``simplesr_tpu_torch/_build/``, named by a hash of every source and header,
+the flags and the compiler (its path and version), and is written to a
+temporary file that is renamed into place, so that several processes can
+build it at once. A failed build raises with the compiler's output: there
+is no fallback.
 
 ctypes releases the GIL for the length of each call, so the pipeline's
 worker threads decode in parallel, as the loader's own thread pool does for
@@ -20,8 +22,10 @@ images by path, least recently used first out past ``cache_bytes``. It
 decodes 16-bit grey as the JAX loader does (the high byte). A file the
 decoders refuse raises ``ImageDecodeError``, both the ``OSError`` of the JAX
 class and a ``ValueError``, with the decoder's reason (which names the
-format); a missing file raises ``FileNotFoundError``. ``decode_bytes``
-decodes bytes in memory, as the serving daemon and gateway take them.
+format); a missing file raises ``FileNotFoundError``. The library reads
+PNG, JPEG, WebP, GIF and TIFF; BMP and netpbm decode in numpy
+(``data/image.py``). ``decode_bytes`` decodes bytes in memory, as the
+serving daemon and gateway take them.
 
 ``encode_jpeg`` writes the bytes that Pillow 12.1 over libjpeg-turbo 3.1.3
 writes for ``Image.fromarray(u8).save(buf, "JPEG", quality=q)`` (baseline,
@@ -42,9 +46,11 @@ from pathlib import Path
 import numpy as np
 
 _PACKAGE = Path(__file__).resolve().parents[1]
-SOURCE = _PACKAGE / "csrc" / "host" / "loader.cpp"
-ENCODER_SOURCE = _PACKAGE / "csrc" / "host" / "jpeg_encode.cpp"
-SOURCES = (SOURCE, ENCODER_SOURCE)
+_HOST = _PACKAGE / "csrc" / "host"
+SOURCE = _HOST / "loader.cpp"
+ENCODER_SOURCE = _HOST / "jpeg_encode.cpp"
+SOURCES = (SOURCE, ENCODER_SOURCE, _HOST / "webp.cpp", _HOST / "gif.cpp", _HOST / "tiff.cpp")
+HEADERS = (_HOST / "formats.h",)
 BUILD_DIR = _PACKAGE / "_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 LIBS = ("-lz",)
@@ -75,7 +81,7 @@ def library_path():
     """Where the library for the current sources, flags and compiler lives."""
     key = (find_cxx(), compiler_version()) + CXX_FLAGS + LIBS
     digest = hashlib.sha256(" ".join(key).encode())
-    for source in SOURCES:
+    for source in SOURCES + HEADERS:
         digest.update(source.read_bytes())
     return BUILD_DIR / f"ssr_host_loader_{digest.hexdigest()[:16]}.so"
 
@@ -153,8 +159,8 @@ def _last_error(lib):
 
 
 def decode_bytes(data, name="image", grey16="pil"):
-    """PNG or JPEG bytes -> uint8 RGB (H, W, 3). A body the decoders refuse
-    raises ``ValueError`` naming ``name`` and the reason."""
+    """PNG, JPEG, WebP, GIF or TIFF bytes -> uint8 RGB (H, W, 3). A body the
+    decoders refuse raises ``ValueError`` naming ``name`` and the reason."""
     lib = library()
     h, w, out = ctypes.c_int(), ctypes.c_int(), _u8p()
     data = bytes(data)

@@ -13,9 +13,11 @@ the same constructor, factories (``from_config``, ``eval_pipeline``,
 
 The host decodes each image once into a uint8 cache and slices crops. With
 ``use_native=True`` (the default, as in the JAX package) the port's C++
-loader (``data/native_loader.py``) decodes PNG and JPEG and serves naive
-crops from its own cache and thread pool; ``use_native=False`` decodes PNG in
-Python (``data/png.py``) and JPEG through the C++ decoder's bytes entry.
+loader (``data/native_loader.py``) decodes PNG and JPEG (and WebP, GIF and
+TIFF, which the listing does not pick) and serves naive crops from its own
+cache and thread pool, and BMP decodes in numpy (``data/bmp.py``), as the
+JAX pipeline hands it to PIL; ``use_native=False`` decodes PNG in Python
+(``data/png.py``) and JPEG through the C++ decoder's bytes entry.
 Each path reads 16-bit grey as its JAX counterpart does: the native loader's
 high byte, or PIL's clip to 255. numpy draws the file order, the shuffle and
 the crop offsets exactly as the JAX package draws them, so that HR batches
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from simplesr_tpu_torch.core.device import resolve_device
-from simplesr_tpu_torch.data.image import read_rgb_u8
+from simplesr_tpu_torch.data.image import PYTHON_KINDS, file_kind, read_rgb_u8
 from simplesr_tpu_torch.data.native_loader import get_native_loader
 from simplesr_tpu_torch.ops import augment as augment_ops
 from simplesr_tpu_torch.ops.jpeg import jpeg_degrade
@@ -198,6 +200,7 @@ class DataPipeline:
             random_seed if random_seed is not None
             else int(np.random.default_rng().integers(2**31 - 1)))
         self._decode_cache = {}
+        self._native_kind = {}
         self._device_img_cache = {}
         # the C++ decode and crop server (thread pool, LRU cache)
         self._native = get_native_loader() if use_native else None
@@ -250,11 +253,19 @@ class DataPipeline:
 
     # ------------------------------------------------------------- decode
 
+    def _native_reads(self, path):
+        """Whether the C++ loader reads this file (BMP decodes in numpy)."""
+        if self._native is None:
+            return False
+        if path not in self._native_kind:
+            self._native_kind[path] = file_kind(path) not in PYTHON_KINDS
+        return self._native_kind[path]
+
     def _decoded(self, path):
         """The uint8 RGB image, decoded once."""
         img = self._decode_cache.get(path)
         if img is None:
-            if self._native is not None:
+            if self._native_reads(path):
                 img = self._native.load_image_u8(path)
             else:
                 img = read_rgb_u8(path, native=False)
@@ -265,7 +276,7 @@ class DataPipeline:
         img = self._decode_cache.get(path)
         if img is not None:
             return img.shape[0], img.shape[1]
-        if self._native is not None:
+        if self._native_reads(path):
             return self._native.image_size(path)
         return self._decoded(path).shape[:2]
 
@@ -278,7 +289,7 @@ class DataPipeline:
         loader, with the same draws."""
         ph, pw = self.crop_size[0], self.crop_size[1]
         n = self.num_crops
-        if self.crop_naive and self._native is not None and path not in self._decode_cache:
+        if self.crop_naive and path not in self._decode_cache and self._native_reads(path):
             h, w = self._native.image_size(path)
             if h < ph or w < pw:
                 raise ValueError(f"patch {ph}x{pw} larger than image {h}x{w} ({path})")

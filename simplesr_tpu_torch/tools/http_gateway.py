@@ -5,8 +5,9 @@
     curl -s --data-binary @input.jpg http://127.0.0.1:8080/upscale > out.png
 
 Endpoints:
-- ``POST /upscale``: the body is a PNG or a JPEG; the response is the SR
-  result as PNG (200). A body that cannot be decoded gets 400, one over
+- ``POST /upscale``: the body is a PNG, JPEG, WebP, GIF, TIFF, BMP or
+  netpbm image (``data/image.py``); the response is the SR result as PNG
+  (200). A body that cannot be decoded gets 400, one over
   ``MAX_BODY_BYTES`` 413, a fault 500, each with a plain-text message.
 - ``GET /healthz``: JSON liveness and the model, scale, ensemble and paired
   width served.

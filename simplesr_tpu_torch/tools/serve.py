@@ -23,14 +23,16 @@ Design:
 
 Protocol (length-prefixed frames over one persistent connection; send any
 number of requests, close to end the session):
-  client -> server: uint64 big-endian length + PNG, JPEG or BMP bytes   (repeat)
+  client -> server: uint64 big-endian length + image bytes (below)     (repeat)
   server -> client: 1 status byte (0 = ok, 1 = error)
                     + uint64 big-endian length
                     + payload: PNG bytes (ok) | UTF-8 error message (error)
 A failed request (an undecodable image, a model error) gets status 1 and a
-message; the connection stays usable. Bodies are decoded by the port's C++
-decoders (``data/image.py``: PNG of every mode and JPEG, as PIL reads them)
-and replies encoded by its PNG code; GIF, WebP and TIFF bodies get status 1.
+message; the connection stays usable. Bodies are decoded by the port's own
+decoders (``data/image.py``: PNG, JPEG, WebP, GIF and TIFF in C++, BMP and
+netpbm in numpy, as PIL reads them) and replies encoded by its PNG code; a
+variant they refuse (an animated WebP, JPEG-in-TIFF, ...) gets status 1
+naming it.
 
 Run:    python -m simplesr_tpu_torch.tools.serve --model m.msgpack --scale 4 \\
             --socket /tmp/sr.sock [--device cpu]
@@ -106,8 +108,9 @@ def _recv_reply(sock):
 
 
 def decode_image(blob):
-    """Request bytes (PNG, JPEG or BMP) -> uint8 RGB (H, W, 3), as PIL's
-    ``convert("RGB")`` gives them; anything else raises ValueError."""
+    """Request bytes (PNG, JPEG, BMP, WebP, GIF, TIFF or netpbm) -> uint8 RGB
+    (H, W, 3), as PIL's ``convert("RGB")`` gives them (the first image of a
+    GIF or TIFF, a still WebP); anything else raises ValueError."""
     return _decode(blob, "request")
 
 
@@ -471,7 +474,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     p.add_argument("--client", metavar="ADDR", help="client mode: socket path (or host:port)")
     p.add_argument("--output", default=".", help="[client] output directory")
-    p.add_argument("inputs", nargs="*", help="[client] PNG files")
+    p.add_argument("inputs", nargs="*", help="[client] image files")
     args = p.parse_args(argv)
 
     if args.client:

@@ -1,4 +1,5 @@
-"""Single-command upscaler: one model file, PNG or JPEG images in, SR PNGs out.
+"""Single-command upscaler: one model file, images in (PNG, JPEG, WebP, GIF,
+TIFF, BMP, netpbm: ``data/image.py``), SR PNGs out.
 
     python -m simplesr_tpu_torch.tools.upscale \\
         --model results/quality_fastrecipe/models/resnet_gen_srresnet_x4_best.msgpack \\
@@ -27,7 +28,7 @@ from simplesr_tpu_torch.eval.evaluation import (_as_predictor, _upscale,
 
 def upscale_files(model_path, inputs, output_dir, scale, tile_threshold=1000, fast=True,
                   ensemble=False, paired=0, device="cuda"):
-    """Upscale PNG and JPEG files into ``output_dir`` as ``<name>_x<scale>.png``;
+    """Upscale image files into ``output_dir`` as ``<name>_x<scale>.png``;
     return the output paths. ``tile_threshold`` is kept for the JAX
     package's signature: the route tiles LR images over 1000 x 1000, as
     there, and any other value raises ValueError."""
@@ -68,7 +69,7 @@ def main(argv=None):
     p.add_argument("--paired", type=int, default=0, metavar="W",
                    help="paired trunk (W batch items packed into channels; exact rewrite)")
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
-    p.add_argument("inputs", nargs="+", help="input PNG files")
+    p.add_argument("inputs", nargs="+", help="input image files")
     args = p.parse_args(argv)
     if args.paired and args.paired < 2:
         p.error(f"--paired must be >= 2, got {args.paired}")

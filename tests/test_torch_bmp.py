@@ -119,18 +119,28 @@ def test_four_bit_palette_and_core_header():
 
 @pytest.mark.parametrize("kind,name", [(1, "RLE8"), (2, "RLE4")])
 def test_rle_is_refused_by_name(kind, name):
-    """PIL reads RLE; the port refuses it with the roadmap item that holds
-    it."""
+    """An RLE file decodes as PIL reads it; the BMP compressions still
+    refused (JPEG, PNG, ALPHABITFIELDS) name the roadmap item that holds
+    them, and so does RLE of a depth PIL's RLE decoder does not pair with it."""
     bits = 8 if kind == 1 else 4
     palette = np.random.default_rng(kind).integers(0, 256, (1 << bits, 4),
                                                    dtype=np.uint8).tobytes()
     rle = bytes([4, 1, 0, 0, 4, 2, 0, 1])  # two rows of 4 pixels, end of bitmap
-    head = struct.pack("<IiiHHIIiiII", 40, 4, 2, 1, bits, kind, len(rle), 0, 0, 0, 0)
-    offset = 14 + len(head) + len(palette)
-    data = b"BM" + struct.pack("<IHHI", offset + len(rle), 0, 0, offset) + head + palette + rle
+
+    def rle_file(depth, compression):
+        head = struct.pack("<IiiHHIIiiII", 40, 4, 2, 1, depth, compression, len(rle), 0, 0, 0, 0)
+        offset = 14 + len(head) + len(palette)
+        return (b"BM" + struct.pack("<IHHI", offset + len(rle), 0, 0, offset) + head + palette
+                + rle)
+
+    data = rle_file(bits, kind)
     assert _pil(data).shape == (2, 4, 3)
-    with pytest.raises(ValueError, match=f"{name} compression.*Queue 1, item 3"):
-        decode_bmp(data)
+    np.testing.assert_array_equal(decode_bmp(data), _pil(data))
+    with pytest.raises(ValueError, match=f"{name} compression of 24-bit.*Queue 1, item 3"):
+        decode_bmp(rle_file(24, kind))
+    for code, refused in ((4, "JPEG"), (5, "PNG"), (6, "ALPHABITFIELDS")):
+        with pytest.raises(ValueError, match=f"{refused} compression.*Queue 1, item 3"):
+            decode_bmp(rle_file(bits, code))
 
 
 def test_bad_files_are_refused():
@@ -154,8 +164,8 @@ def test_dispatch_reads_bmp_as_pil(tmp_path):
     np.testing.assert_array_equal(read_img(path), img.astype(np.float32))
     np.testing.assert_array_equal(decode_image(path.read_bytes()), img)
     np.testing.assert_array_equal(serve_decode(path.read_bytes()), img)
-    with pytest.raises(ValueError, match="PNG, JPEG or BMP"):
-        decode_image(b"GIF89a" + bytes(16))
+    with pytest.raises(ValueError, match="PNG, JPEG, BMP, WebP, GIF, TIFF or netpbm"):
+        decode_image(b"RIFF" + bytes(4) + b"WAVE" + bytes(16))
 
 
 def test_committed_stand_in_fixture_equals_its_png():

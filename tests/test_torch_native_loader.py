@@ -74,7 +74,7 @@ def test_failures_raise_as_the_jax_loader_does(loaders, tmp_path):
         own.load_crops([FILES[0], FILES[1]], [0, 0], [0, 10_000], 8, 8, dtype=np.uint8)
     text = tmp_path / "notes.png"
     text.write_text("not an image")
-    with pytest.raises(ImageDecodeError, match="not a PNG or JPEG") as info:
+    with pytest.raises(ImageDecodeError, match="not a PNG, JPEG, WebP, GIF or TIFF") as info:
         own.load_image(str(text))
     assert isinstance(info.value, ValueError) and isinstance(info.value, OSError)
 

@@ -327,6 +327,8 @@ IMAGE_INPUT_MODULES = ["data/image.py", "data/native_loader.py", "data/png.py",
 # the quality tooling and the BMP decoder it reads
 QUALITY_MODULES = ["tools/quality_campaign.py", "tools/quality_check.py", "tools/gan_smoke.py",
                    "tools/standard_benchmarks.py", "data/bmp.py"]
+# the image formats PIL opens beside PNG and JPEG: netpbm (the others are C++)
+IMAGE_FORMAT_MODULES = ["data/pnm.py", "data/image.py", "data/bmp.py", "data/pipeline.py"]
 # the denoising path: the JPEG-noise campaign, the two studies and the
 # encoder's binding
 DENOISING_MODULES = ["tools/jpg_noise_campaign.py", "tools/ensemble_study.py",
@@ -342,7 +344,7 @@ def test_port_imports_only_torch_numpy_and_stdlib():
     assert {ROOT / "simplesr_tpu_torch" / m
             for m in GAN_MODULES + SERVING_MODULES + TRAINING_SURFACE_MODULES
             + PARALLEL_MODULES + IMAGE_INPUT_MODULES + QUALITY_MODULES
-            + DENOISING_MODULES} <= set(files)
+            + DENOISING_MODULES + IMAGE_FORMAT_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
