@@ -287,17 +287,21 @@ plain PyTorch version, in one process, with no arguments:
      ``tools/ema_study`` for 1 epoch on the same 4 training tiles. A
      missing committed model fails the phase;
  18. the image formats the JAX package opens through PIL beside PNG and
-     JPEG: (a) every fixture of data/corpus/image_formats (WebP, GIF,
-     TIFF, netpbm, RLE BMP) decodes on the card's host to its manifest's
-     digest of PIL's decode, each refused variant refused naming it, and
-     each decoder's one-thread MPix/s on the same 96 x 128 gallery tile
-     (median of DECODE_RUNS), beside the PNG and JPEG decoders' on that
-     tile (the port's encoders write them); (b) the daemon and the gateway
-     serve the tile as lossy and lossless WebP, GIF, LZW TIFF, PPM and RLE8
-     BMP bodies, each with the launch counts set to 0 just before and read
-     just after: every reply bit-equal to ``upscale_files`` of the same
-     file, one trunk launch a body; (c) a truncated WebP body gets status 1
-     and HTTP 400, naming WebP.
+     JPEG, and the JPEG processes beside baseline: (a) every fixture of
+     data/corpus/image_formats (WebP, GIF, TIFF with its JPEG-compressed,
+     YCbCr, CMYK, CIELab, 32-bit, float and BigTIFF variants, netpbm, RLE BMP, and
+     arithmetic-coded, lossless and block-smoothed JPEG) decodes on the
+     card's host to its manifest's digest of PIL's decode, each refused
+     variant refused naming it, and each decoder's one-thread MPix/s on the
+     same 96 x 128 gallery tile (median of DECODE_RUNS), beside the PNG and
+     JPEG decoders' on that tile (the port's encoders write them) and a
+     baseline JPEG that PIL wrote; (b) the daemon and the gateway serve the
+     tile as lossy and lossless WebP, GIF, LZW TIFF, PPM, RLE8 BMP,
+     arithmetic-coded JPEG, lossless JPEG and JPEG-compressed TIFF bodies,
+     each with the launch counts set to 0 just before and read just after:
+     every reply bit-equal to ``upscale_files`` of the same file, one trunk
+     launch a body; (c) a truncated WebP body gets status 1 and HTTP 400,
+     naming WebP.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -3903,16 +3907,24 @@ def denoising_phase(dev, work, launches_by_path, card):
 
 
 # ------------------------------------------------------------------ phase 18
-# The formats PIL opens for the JAX package beside PNG and JPEG: host
-# decoders of the port's own (csrc/host/webp.cpp, gif.cpp, tiff.cpp;
-# data/pnm.py, data/bmp.py), held to the digests of PIL's decodes that the
-# corpus's manifest keeps (there is no PIL here), timed, and served.
+# The formats PIL opens for the JAX package beside PNG and JPEG, and the
+# JPEG processes beside baseline: host decoders of the port's own
+# (csrc/host/loader.cpp, webp.cpp, gif.cpp, tiff.cpp; data/pnm.py,
+# data/bmp.py), held to the digests of PIL's decodes that the corpus's
+# manifest keeps (there is no PIL here), timed, and served.
 
 FORMATS_MANIFEST = ROOT / "data/corpus/image_formats/MANIFEST.json"
 FORMAT_BODIES = {"webp_lossy": "timing_webp_lossy.webp",
                  "webp_lossless": "timing_webp_lossless.webp", "gif": "timing_gif.gif",
                  "tiff_lzw": "timing_tiff_lzw.tif", "ppm": "timing_ppm.ppm",
-                 "bmp_rle8": "timing_bmp_rle8.bmp"}
+                 "bmp_rle8": "timing_bmp_rle8.bmp", "jpeg_arith": "timing_jpeg_arith.jpg",
+                 "jpeg_lossless": "timing_jpeg_lossless.jpg", "tiff_jpeg": "timing_tiff_jpeg.tif"}
+# timed beside the served bodies: the same tile as a baseline JPEG that PIL
+# wrote, a progressive JPEG that libjpeg smooths, and the other TIFF variants
+TIMED_BODIES = {"jpeg_baseline_pil": "timing_jpeg_baseline.jpg",
+                "jpeg_smoothed": "timing_jpeg_smooth.jpg", "tiff_ycbcr": "timing_tiff_ycbcr.tif",
+                "tiff_cmyk": "timing_tiff_cmyk.tif", "tiff_float32": "timing_tiff_float32.tif",
+                "tiff_cielab": "timing_tiff_cielab.tif", "bigtiff": "timing_tiff_bigtiff.tif"}
 
 
 def image_formats_phase(dev, work, launches_by_path, card):
@@ -3927,12 +3939,13 @@ def image_formats_phase(dev, work, launches_by_path, card):
     from simplesr_tpu_torch.tools.http_gateway import serve_http
     from simplesr_tpu_torch.tools.upscale import upscale_files
 
-    start("18 image formats: WebP, GIF, TIFF, netpbm and RLE BMP decoded, timed and served")
+    start("18 image formats: WebP, GIF, TIFF, netpbm, RLE BMP and the JPEG processes decoded, "
+          "timed and served")
     t_phase = time.perf_counter()
 
     # (a) every fixture against its digest of PIL's decode, the refusals
     manifest = json.loads(FORMATS_MANIFEST.read_text())
-    wrong, counts = [], {}
+    wrong, counts, refusals = [], {}, {}
     for entry in manifest["files"]:
         data = (ROOT / entry["file"]).read_bytes()
         try:
@@ -3940,6 +3953,7 @@ def image_formats_phase(dev, work, launches_by_path, card):
             ok = "refused" not in entry and got == entry["sha256_pil_rgb"]
         except ValueError as e:
             ok = "refused" in entry and entry["refused"] in str(e)
+            refusals[Path(entry["file"]).name] = str(e)
         if not ok:
             wrong.append(entry["file"])
         kind = "refused" if "refused" in entry else entry["format"]
@@ -3947,7 +3961,8 @@ def image_formats_phase(dev, work, launches_by_path, card):
     folder = FORMATS_MANIFEST.parent
     tile = decode_image((folder / FORMAT_BODIES["ppm"]).read_bytes())
     bodies = {"png": encode_png(tile), "jpeg_q90": encode_jpeg(tile, 90)}
-    bodies.update({k: (folder / f).read_bytes() for k, f in FORMAT_BODIES.items()})
+    bodies.update({k: (folder / f).read_bytes()
+                   for k, f in {**FORMAT_BODIES, **TIMED_BODIES}.items()})
     mpix = tile.shape[0] * tile.shape[1] / 1e6
     rates = {}
     for kind, body in bodies.items():
@@ -3956,7 +3971,7 @@ def image_formats_phase(dev, work, launches_by_path, card):
     log(18, check="(a) the corpus against its manifest's digests of PIL's decode, and each "
         f"decoder on one thread (median of {DECODE_RUNS}) on a {tile.shape[0]} x "
         f"{tile.shape[1]} gallery tile", files=counts, pil=manifest["pil"], wrong=wrong,
-        decode=rates, card=card)
+        refusals=refusals, decode=rates, card=card)
     if wrong:
         raise AssertionError(f"fixtures decoded unlike PIL: {wrong}")
 
@@ -4040,7 +4055,8 @@ def image_formats_phase(dev, work, launches_by_path, card):
             and result["stopped"] and daemon_launches == want and http_launches == want):
         raise AssertionError(f"serving the image formats: {result}")
     return {"name": "host image-format decoders", "route": "host C++ (g++, zlib) and numpy",
-            "source": ["simplesr_tpu_torch/csrc/host/webp.cpp",
+            "source": ["simplesr_tpu_torch/csrc/host/loader.cpp",
+                       "simplesr_tpu_torch/csrc/host/webp.cpp",
                        "simplesr_tpu_torch/csrc/host/gif.cpp",
                        "simplesr_tpu_torch/csrc/host/tiff.cpp",
                        "simplesr_tpu_torch/data/pnm.py", "simplesr_tpu_torch/data/bmp.py"],

@@ -9,10 +9,12 @@
 
 #pragma once
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 #include <stdexcept>
 #include <string>
+#include <utility>
 #include <vector>
 
 namespace ssr {
@@ -44,6 +46,29 @@ struct RgbImage {
   std::vector<uint8_t> rgb;  // h * w * 3
   size_t bytes() const { return rgb.size(); }
 };
+
+// PIL's cmyk2rgb (Convert.c) of one pixel of mode CMYK.
+inline void pil_cmyk_to_rgb(uint8_t c, uint8_t m, uint8_t y, uint8_t k, uint8_t* rgb) {
+  const int nk = 255 - k;
+  const uint8_t in[3] = {c, m, y};
+  for (int i = 0; i < 3; ++i) {
+    const int t = in[i] * nk + 128;
+    rgb[i] = uint8_t(std::min(255, std::max(0, nk - (((t >> 8) + t) >> 8))));
+  }
+}
+
+// One strip or tile of a JPEG-compressed TIFF, decoded by loader.cpp's JPEG
+// decoder as libtiff's tif_jpeg.c drives libjpeg: the JPEGTables stream
+// (tables, may be empty) read first, then the segment; YCbCr converted to
+// RGB (Pillow's JPEGCOLORMODE_RGB) or the samples left as they are,
+// upsampled.
+struct JpegSegment {
+  int w = 0, h = 0, channels = 0;
+  std::vector<std::pair<int, int>> sampling;  // (h, v) of each component
+  std::vector<uint8_t> samples;               // h * w * channels
+};
+void decode_jpeg_segment(const uint8_t* tables, size_t tables_size, const uint8_t* d, size_t n,
+                         bool ycbcr_to_rgb, JpegSegment* out);
 
 bool is_webp(const uint8_t* d, size_t n);
 bool is_gif(const uint8_t* d, size_t n);

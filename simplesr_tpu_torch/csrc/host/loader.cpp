@@ -12,11 +12,17 @@
 //     alpha and tRNS dropped, 16 bits to the high byte. The one place where
 //     PIL's convert("RGB") differs, 16-bit grey, is a mode: the loader's high
 //     byte (GREY16_HIGH_BYTE) or PIL's clip to 255 (GREY16_CLIP).
-//   - JPEG as libjpeg-turbo with PIL's settings: Huffman-coded baseline,
-//     extended and progressive 8-bit files, the ISLOW integer IDCT
-//     (jidctint.c) as its x86 SIMD code computes it, fancy upsampling
+//   - JPEG as libjpeg-turbo 3.1 with PIL's settings: 8-bit baseline,
+//     extended and progressive files, Huffman- or arithmetic-coded
+//     (jdarith.c), the ISLOW integer IDCT (jidctint.c) as its x86 SIMD code
+//     computes it, block smoothing of a progressive file whose scans leave
+//     low coefficients unrefined (jdcoefct.c), fancy upsampling
 //     (jdsample.c), the fixed-point YCbCr->RGB tables (jdcolor.c); CMYK and
-//     YCCK as PIL converts them.
+//     YCCK as PIL converts them. Lossless Huffman-coded files (jdlhuff.c,
+//     jddiffct.c, jdlossls.c): the seven predictors, the point transform, box
+//     upsampling and no colour conversion (libjpeg refuses a lossless file
+//     it would have to convert). Refused as PIL and libjpeg refuse them:
+//     12-bit, hierarchical and lossless arithmetic-coded files.
 //
 // Request bodies come from outside the program, so every read is bounded and
 // a corrupt file is an error, as the JAX loader's strict mode makes it: where
@@ -50,7 +56,6 @@ namespace {
 
 constexpr int GREY16_HIGH_BYTE = 0;
 constexpr int GREY16_CLIP = 1;
-const char* kUnsupportedItem = "ROADMAP.md, Queue 1, JPEG variants";
 
 struct DecodeError : std::runtime_error {
   using std::runtime_error::runtime_error;
@@ -395,7 +400,7 @@ struct Derived {
 
 constexpr int kLookahead = 9;
 
-void make_derived(const HuffTable& t, bool is_dc, int index, Derived* d) {
+void make_derived(const HuffTable& t, bool is_dc, int index, Derived* d, int max_dc = 15) {
   if (!t.defined)
     fail("JPEG: Huffman table 0x" + std::to_string(is_dc ? index : index + 16) +
          " was not defined");
@@ -443,9 +448,9 @@ void make_derived(const HuffTable& t, bool is_dc, int index, Derived* d) {
         d->lookup[look] = uint16_t((l << 8) | t.vals[p]);
     }
   }
-  if (is_dc)
+  if (is_dc)  // a lossless difference's category goes to 16
     for (int i = 0; i < numsymbols; ++i)
-      if (t.vals[i] > 15) fail("JPEG: bogus Huffman table definition");
+      if (t.vals[i] > max_dc) fail("JPEG: bogus Huffman table definition");
 }
 
 // The entropy-coded segment's bits: stuffed bytes undone, ending at the
@@ -529,6 +534,96 @@ struct BitReader {
   }
 };
 
+// libjpeg's Table D.2 (jaricom.c): Qe << 16 | next MPS << 8 | switch << 7 |
+// next LPS; entry 113 is the fixed estimate of 0.5.
+const uint32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171};
+
+// jdarith.c's decoder: the C and A registers, ct the bits left in C's
+// buffer part (-16 before the first two bytes). After a marker it reads
+// zeros, as the standard has it; the data running out is an error.
+struct ArithReader {
+  const uint8_t* data;
+  size_t size;
+  size_t pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  int marker = -1;
+
+  void reset(size_t at) {
+    pos = at;
+    c = a = 0;
+    ct = -16;
+    marker = -1;
+  }
+
+  int byte() {
+    if (marker >= 0) return 0;
+    if (pos >= size) fail("JPEG: truncated file (the data ends inside a scan)");
+    int v = data[pos++];
+    if (v != 0xFF) return v;
+    do {
+      if (pos >= size) fail("JPEG: truncated file (the data ends inside a scan)");
+      v = data[pos++];
+    } while (v == 0xFF);
+    if (v == 0) return 0xFF;
+    marker = v;
+    return 0;
+  }
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // two bytes read at the start
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = int(qe & 0xFF), nm = int((qe >> 8) & 0xFF);
+    qe >>= 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange of MPS and LPS
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 inline int extend(unsigned x, int s) {
   return s == 0 ? 0 : (int(x) < (1 << (s - 1)) ? int(x) + int((~0u) << s) + 1 : int(x));
 }
@@ -540,10 +635,15 @@ struct Component {
   int bwp = 0, bhp = 0;  // the coefficient buffer's blocks (padded to whole MCUs)
   int dw = 0, dh = 0;    // downsampled size
   bool latched = false;
+  bool scanned = false;  // in a scan yet
   uint16_t quant[64];
   int coef_bits[64];
   std::vector<int16_t> coefs;  // bhp * bwp blocks of 64, natural order
   int16_t* block(int bx, int by) { return coefs.data() + (size_t(by) * bwp + bx) * 64; }
+  // lossless files: a block is one sample; the differences over whole MCUs
+  // and the samples, bh rows of bw
+  std::vector<int32_t> diffs;
+  std::vector<uint8_t> samples;
 };
 
 // libjpeg's tables for the colour conversion (jdcolor.c) and its clamp of
@@ -658,19 +758,82 @@ class JpegDecoder {
   JpegDecoder(const uint8_t* data, size_t n) : d_(data), n_(n) {}
 
   void decode(Image* out) {
+    read_stream();
+    finish(out);
+  }
+
+  // JPEG-in-TIFF (libtiff's tif_jpeg.c): the JPEGTables stream, read first
+  // as libjpeg reads a tables-only datastream; its tables stay for the
+  // segment.
+  void load_tables(const uint8_t* tables, size_t n) {
+    const uint8_t* d = d_;
+    const size_t len = n_;
+    d_ = tables;
+    n_ = n;
+    tables_only_ = true;
+    read_stream();
+    tables_only_ = false;
+    d_ = d;
+    n_ = len;
+  }
+
+  // The segment's samples after upsampling, interleaved, with libtiff's
+  // colour handling: YCbCr converted to RGB (JPEGCOLORMODE_RGB), or none.
+  void decode_samples(bool ycbcr_to_rgb, int* channels, int* w, int* h, std::vector<uint8_t>* out) {
+    read_stream();
+    const int nc = int(comps_.size());
+    *w = width_;
+    *h = height_;
+    if (ycbcr_to_rgb) {
+      if (nc != 3) fail("JPEG-in-TIFF: a YCbCr segment of " + std::to_string(nc) + " components");
+      space_ = CS_YCC;
+      Image rgb;
+      finish(&rgb);
+      *channels = 3;
+      *out = std::move(rgb.rgb);
+      return;
+    }
+    std::vector<std::vector<uint8_t>> full = planes();
+    const size_t npix = size_t(width_) * height_;
+    out->resize(npix * nc);
+    for (size_t i = 0; i < npix; ++i)
+      for (int k = 0; k < nc; ++k) (*out)[i * nc + k] = full[k][i];
+    *channels = nc;
+  }
+
+  std::vector<std::pair<int, int>> sampling() const {
+    std::vector<std::pair<int, int>> s;
+    for (const auto& c : comps_) s.emplace_back(c.h, c.v);
+    return s;
+  }
+
+ private:
+  // The markers from SOI to EOI.
+  void read_stream() {
     if (n_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) fail("JPEG: not a JPEG file");
     pos_ = 2;
+    // get_soi: what each SOI resets
+    restart_interval_ = 0;
+    jfif_ = adobe_ = false;
+    for (int i = 0; i < 16; ++i) {
+      dc_l_[i] = 0;
+      dc_u_[i] = 1;
+      ac_k_[i] = 5;
+    }
     int marker = next_marker();
     bool first_scan = true;
     for (;;) {
+      if (tables_only_ && (marker == 0xDA || (marker >= 0xC0 && marker <= 0xCF && marker != 0xC4 &&
+                                              marker != 0xC8 && marker != 0xCC)))
+        fail("JPEG-in-TIFF: the JPEGTables stream holds an image");
       switch (marker) {
-        case 0xC0: case 0xC1: case 0xC2:
-          read_sof(marker == 0xC2);
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
+          read_sof(marker);
           break;
-        case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9: case 0xCA: case 0xCB:
-        case 0xCD: case 0xCE: case 0xCF:
+        case 0xC5: case 0xC6: case 0xC7: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
           fail(std::string("JPEG: ") + sof_kind(marker) + " (SOF" +
-               std::to_string(marker - 0xC0) + ") is not decoded (" + kUnsupportedItem + ")");
+               std::to_string(marker - 0xC0) + ") is not decoded: libjpeg refuses it (" +
+               ssr::kFormatsItem + ")");
         case 0xC8:
           fail("JPEG: unsupported marker JPG (0xC8)");
         case 0xC4:
@@ -685,8 +848,7 @@ class JpegDecoder {
         case 0xD8:
           fail("JPEG: invalid structure (two SOI markers)");
         case 0xD9:
-          if (first_scan) fail("JPEG: no image (EOI before any scan)");
-          finish(out);
+          if (first_scan && !tables_only_) fail("JPEG: no image (EOI before any scan)");
           return;
         case 0xDA:
           if (!sof_) fail("JPEG: invalid structure (SOS before SOF)");
@@ -722,14 +884,11 @@ class JpegDecoder {
     }
   }
 
- private:
   static const char* sof_kind(int m) {
     switch (m) {
-      case 0xC3: return "lossless JPEG";
       case 0xC5: case 0xC6: case 0xC7: return "hierarchical JPEG";
       case 0xCB: return "lossless arithmetic-coded JPEG";
-      case 0xCD: case 0xCE: case 0xCF: return "hierarchical arithmetic-coded JPEG";
-      default: return "arithmetic-coded JPEG";
+      default: return "hierarchical arithmetic-coded JPEG";
     }
   }
 
@@ -834,15 +993,21 @@ class JpegDecoder {
     if (length != 0) fail("JPEG: bogus marker length (DQT)");
   }
 
-  // get_dac: arithmetic-coding conditioning, validated and unused
+  // get_dac: the arithmetic coder's conditioning, L and U of a DC table,
+  // Kx of an AC table
   void read_dac() {
     long length = two_bytes() - 2;
     while (length > 0) {
       int index = byte(), value = byte();
       length -= 2;
       if (index >= 32) fail("JPEG: bogus DAC index " + std::to_string(index));
-      if (index < 16 && (value & 0x0F) > (value >> 4))
-        fail("JPEG: bogus DAC value " + std::to_string(value));
+      if (index >= 16) {
+        ac_k_[index - 16] = value;
+      } else {
+        if ((value & 0x0F) > (value >> 4)) fail("JPEG: bogus DAC value " + std::to_string(value));
+        dc_l_[index] = value & 0x0F;
+        dc_u_[index] = value >> 4;
+      }
     }
     if (length != 0) fail("JPEG: bogus marker length (DAC)");
   }
@@ -852,7 +1017,7 @@ class JpegDecoder {
     restart_interval_ = two_bytes();
   }
 
-  void read_sof(bool progressive) {
+  void read_sof(int marker) {
     long length = two_bytes();
     int precision = byte();
     height_ = two_bytes();
@@ -862,9 +1027,9 @@ class JpegDecoder {
     if (sof_) fail("JPEG: invalid structure (two SOF markers)");
     if (height_ <= 0 || width_ <= 0 || nc <= 0) fail("JPEG: empty image");
     if (length != nc * 3) fail("JPEG: bogus marker length (SOF)");
-    if (precision == 12)
-      fail(std::string("JPEG: 12-bit samples are not decoded (") + kUnsupportedItem + ")");
-    if (precision != 8) fail("JPEG: unsupported data precision " + std::to_string(precision));
+    if (precision != 8)  // PIL's plugin reads only 8-bit frames
+      fail("JPEG: " + std::to_string(precision) +
+           "-bit samples are not decoded: PIL refuses them (" + ssr::kFormatsItem + ")");
     comps_.assign(nc, Component());
     for (int i = 0; i < nc; ++i) {
       comps_[i].id = byte();
@@ -873,7 +1038,9 @@ class JpegDecoder {
       comps_[i].v = c & 15;
       comps_[i].tq = byte();
     }
-    progressive_ = progressive;
+    progressive_ = marker == 0xC2 || marker == 0xCA;
+    arith_ = marker == 0xC9 || marker == 0xCA;
+    lossless_ = marker == 0xC3;
     sof_ = true;
   }
 
@@ -891,16 +1058,22 @@ class JpegDecoder {
       maxh_ = std::max(maxh_, c.h);
       maxv_ = std::max(maxv_, c.v);
     }
-    mcux_ = (width_ + 8 * maxh_ - 1) / (8 * maxh_);
-    mcuy_ = (height_ + 8 * maxv_ - 1) / (8 * maxv_);
+    const int unit = lossless_ ? 1 : 8;  // a lossless block is one sample
+    mcux_ = (width_ + unit * maxh_ - 1) / (unit * maxh_);
+    mcuy_ = (height_ + unit * maxv_ - 1) / (unit * maxv_);
     for (auto& c : comps_) {
-      c.bw = int((int64_t(width_) * c.h + 8 * maxh_ - 1) / (8 * maxh_));
-      c.bh = int((int64_t(height_) * c.v + 8 * maxv_ - 1) / (8 * maxv_));
+      c.bw = int((int64_t(width_) * c.h + unit * maxh_ - 1) / (unit * maxh_));
+      c.bh = int((int64_t(height_) * c.v + unit * maxv_ - 1) / (unit * maxv_));
       c.dw = int((int64_t(width_) * c.h + maxh_ - 1) / maxh_);
       c.dh = int((int64_t(height_) * c.v + maxv_ - 1) / maxv_);
       c.bwp = std::max(mcux_ * c.h, c.bw);
       c.bhp = std::max(mcuy_ * c.v, c.bh);
-      c.coefs.assign(size_t(c.bwp) * c.bhp * 64, 0);
+      if (lossless_) {
+        c.diffs.assign(size_t(c.bwp) * c.bhp, 0);
+        c.samples.assign(size_t(c.bw) * c.bh, 0);
+      } else {
+        c.coefs.assign(size_t(c.bwp) * c.bhp * 64, 0);
+      }
       for (int& b : c.coef_bits) b = -1;
     }
     if (nc == 1) {
@@ -912,13 +1085,15 @@ class JpegDecoder {
         space_ = adobe_transform_ == 0 ? CS_RGB : CS_YCC;
       } else {
         int a = comps_[0].id, b = comps_[1].id, c = comps_[2].id;
-        space_ = (a == 82 && b == 71 && c == 66) ? CS_RGB : CS_YCC;
+        // libjpeg-turbo 3 takes a lossless file without markers for RGB
+        space_ = (a == 82 && b == 71 && c == 66) || lossless_ ? CS_RGB : CS_YCC;
       }
     } else {
       space_ = (adobe_ && adobe_transform_ != 0) ? CS_YCCK : CS_CMYK;
     }
     // the standard Huffman tables in the slots the file left empty
-    read_dht(true, kStdHuffman, sizeof kStdHuffman);
+    // (jdhuff.c; libjpeg's lossless decoder installs none)
+    if (!lossless_) read_dht(true, kStdHuffman, sizeof kStdHuffman);
   }
 
   // One scan, from its SOS header; returns the marker that follows it.
@@ -941,12 +1116,17 @@ class JpegDecoder {
         if (scan[j] == found) fail("JPEG: invalid component ID " + std::to_string(cc) + " in SOS");
       found->dc_tbl = (c >> 4) & 15;
       found->ac_tbl = c & 15;
+      found->scanned = true;
       scan[i] = found;
     }
     int ss = byte(), se = byte(), a = byte();
     int ah = (a >> 4) & 15, al = a & 15;
     ++scan_number_;
     if (scan_number_ == 1) single_scan_ = !progressive_ && ns == int(comps_.size());
+    int blocks = 0;
+    for (int i = 0; i < ns; ++i) blocks += ns == 1 ? 1 : scan[i]->h * scan[i]->v;
+    if (blocks > 10) fail("JPEG: sampling factors too large for an interleaved scan");
+    if (lossless_) return read_lossless_scan(scan, ns, ss, se, ah, al);
     // latch the quantisation tables (jdinput.c latch_quant_tables)
     for (int i = 0; i < ns; ++i) {
       Component* c = scan[i];
@@ -956,12 +1136,7 @@ class JpegDecoder {
       std::memcpy(c->quant, qt_[c->tq], sizeof c->quant);
       c->latched = true;
     }
-    int blocks = 0;
-    for (int i = 0; i < ns; ++i) blocks += ns == 1 ? 1 : scan[i]->h * scan[i]->v;
-    if (blocks > 10) fail("JPEG: sampling factors too large for an interleaved scan");
 
-    Derived* dc[4] = {nullptr, nullptr, nullptr, nullptr};
-    Derived* ac[4] = {nullptr, nullptr, nullptr, nullptr};
     bool is_dc = ss == 0;
     if (progressive_) {
       bool bad = false;
@@ -976,7 +1151,13 @@ class JpegDecoder {
       if (bad) fail("JPEG: invalid progressive parameters");
       for (int i = 0; i < ns; ++i)
         for (int k = ss; k <= se; ++k) scan[i]->coef_bits[k] = al;
+    } else if (ss != 0 || ah != 0 || al != 0 || (se < 64 && se != 63)) {
+      fail("JPEG: a sequential scan with the parameters of another process (libjpeg warns)");
     }
+    if (arith_) return read_arith_scan(scan, ns, ss, se, ah, al);
+
+    Derived* dc[4] = {nullptr, nullptr, nullptr, nullptr};
+    Derived* ac[4] = {nullptr, nullptr, nullptr, nullptr};
     for (int i = 0; i < ns; ++i) {
       Component* c = scan[i];
       if (!progressive_ || (is_dc && ah == 0)) {
@@ -991,38 +1172,48 @@ class JpegDecoder {
       }
     }
 
-    int mcus_x, mcus_y;
-    if (ns == 1) {
-      mcus_x = scan[0]->bw;
-      mcus_y = scan[0]->bh;
-    } else {
-      mcus_x = mcux_;
-      mcus_y = mcuy_;
-    }
     BitReader br{d_, n_, pos_};
     br.reset(pos_);
     int last_dc[4] = {0, 0, 0, 0};
     int eobrun = 0;
+    for_each_block(scan, ns, [&]() {
+      // process_restart: the segment must end with the next RSTn
+      int m = br.marker;
+      pos_ = br.pos;
+      if (m < 0) m = next_marker();
+      check_restart(m);
+      br.reset(pos_);
+      last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
+      eobrun = 0;
+    }, [&](int i, int16_t* blk) {
+      if (!progressive_)
+        decode_sequential(br, *dc[i], *ac[i], blk, &last_dc[i]);
+      else if (is_dc && ah == 0)
+        decode_dc_first(br, *dc[i], blk, &last_dc[i], al);
+      else if (is_dc)
+        decode_dc_refine(br, blk, al);
+      else if (ah == 0)
+        decode_ac_first(br, *ac[i], blk, ss, se, al, &eobrun);
+      else
+        decode_ac_refine(br, *ac[i], blk, ss, se, al, &eobrun);
+    });
+    pos_ = br.pos;
+    if (br.marker >= 0) return br.marker;
+    return next_marker();
+  }
+
+  // The scan's blocks in MCU order: restart() where an interval ends,
+  // block(i, coefficients) for each block of scan component i.
+  template <typename Restart, typename Block>
+  void for_each_block(Component** scan, int ns, Restart restart, Block block) {
+    int mcus_x = ns == 1 ? scan[0]->bw : mcux_, mcus_y = ns == 1 ? scan[0]->bh : mcuy_;
     int restarts_to_go = restart_interval_;
-    int next_restart = 0;
+    next_restart_ = 0;
     for (int my = 0; my < mcus_y; ++my) {
       for (int mx = 0; mx < mcus_x; ++mx) {
         if (restart_interval_) {
           if (restarts_to_go == 0) {
-            // process_restart: the segment must end with the next RSTn
-            int m = br.marker;
-            if (m < 0) {
-              pos_ = br.pos;
-              m = next_marker();
-            } else {
-              pos_ = br.pos;
-            }
-            if (m != 0xD0 + next_restart)
-              fail("JPEG: corrupt data (restart marker out of sequence)");
-            next_restart = (next_restart + 1) & 7;
-            br.reset(pos_);
-            last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
-            eobrun = 0;
+            restart();
             restarts_to_go = restart_interval_;
           }
           --restarts_to_go;
@@ -1031,25 +1222,18 @@ class JpegDecoder {
           Component* c = scan[i];
           int bh = ns == 1 ? 1 : c->v, bwn = ns == 1 ? 1 : c->h;
           for (int y = 0; y < bh; ++y)
-            for (int x = 0; x < bwn; ++x) {
-              int16_t* blk = ns == 1 ? c->block(mx, my) : c->block(mx * c->h + x, my * c->v + y);
-              if (!progressive_)
-                decode_sequential(br, *dc[i], *ac[i], blk, &last_dc[i]);
-              else if (is_dc && ah == 0)
-                decode_dc_first(br, *dc[i], blk, &last_dc[i], al);
-              else if (is_dc)
-                decode_dc_refine(br, blk, al);
-              else if (ah == 0)
-                decode_ac_first(br, *ac[i], blk, ss, se, al, &eobrun);
-              else
-                decode_ac_refine(br, *ac[i], blk, ss, se, al, &eobrun);
-            }
+            for (int x = 0; x < bwn; ++x)
+              block(i, ns == 1 ? c->block(mx, my) : c->block(mx * c->h + x, my * c->v + y));
         }
       }
     }
-    pos_ = br.pos;
-    if (br.marker >= 0) return br.marker;
-    return next_marker();
+  }
+
+  // read_restart_marker: the marker must be the next RSTn in sequence
+  // (libjpeg resyncs with a warning otherwise)
+  void check_restart(int m) {
+    if (m != 0xD0 + next_restart_) fail("JPEG: corrupt data (restart marker out of sequence)");
+    next_restart_ = (next_restart_ + 1) & 7;
   }
 
   static void decode_sequential(BitReader& br, const Derived& dc, const Derived& ac,
@@ -1154,6 +1338,272 @@ class JpegDecoder {
     }
   }
 
+  // ------------------------------------------------------------ arithmetic
+
+  // jdarith.c: statistics bins per table (64 for DC, 256 for AC), reset
+  // with the decoder at each restart; the sign of an AC value and the
+  // refinement bits use the fixed estimate.
+  int read_arith_scan(Component** scan, int ns, int ss, int se, int ah, int al) {
+    const bool is_dc = ss == 0;
+    const bool dc_stats = !progressive_ || (is_dc && ah == 0), ac_stats = !progressive_ || ss;
+    for (int i = 0; i < ns; ++i) {
+      if (dc_stats && scan[i]->dc_tbl >= 16) fail("JPEG: arithmetic table was not defined");
+      if (ac_stats && scan[i]->ac_tbl >= 16) fail("JPEG: arithmetic table was not defined");
+    }
+    uint8_t dc_bins[16][64], ac_bins[16][256];
+    int last_dc[4] = {0, 0, 0, 0}, context[4] = {0, 0, 0, 0};
+    auto reset_stats = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        if (dc_stats) {
+          std::memset(dc_bins[scan[i]->dc_tbl], 0, 64);
+          last_dc[i] = context[i] = 0;
+        }
+        if (ac_stats) std::memset(ac_bins[scan[i]->ac_tbl], 0, 256);
+      }
+    };
+    reset_stats();
+    uint8_t fixed = 113;
+    ArithReader ar{d_, n_, pos_};
+    ar.reset(pos_);
+    for_each_block(scan, ns, [&]() {
+      int m = ar.marker;
+      pos_ = ar.pos;
+      if (m < 0) m = next_marker();
+      check_restart(m);
+      reset_stats();
+      ar.reset(pos_);
+    }, [&](int i, int16_t* blk) {
+      Component* c = scan[i];
+      if (!progressive_) {
+        arith_dc(ar, dc_bins[c->dc_tbl], c->dc_tbl, &last_dc[i], &context[i]);
+        blk[0] = int16_t(last_dc[i]);
+        arith_ac_sequential(ar, ac_bins[c->ac_tbl], ac_k_[c->ac_tbl], &fixed, blk);
+      } else if (is_dc && ah == 0) {
+        arith_dc(ar, dc_bins[c->dc_tbl], c->dc_tbl, &last_dc[i], &context[i]);
+        blk[0] = int16_t(unsigned(last_dc[i]) << al);
+      } else if (is_dc) {
+        if (ar.decode(&fixed)) blk[0] = int16_t(blk[0] | (1 << al));
+      } else if (ah == 0) {
+        arith_ac_first(ar, ac_bins[c->ac_tbl], ac_k_[c->ac_tbl], &fixed, blk, ss, se, al);
+      } else {
+        arith_ac_refine(ar, ac_bins[c->ac_tbl], &fixed, blk, ss, se, al);
+      }
+    });
+    pos_ = ar.pos;
+    if (ar.marker >= 0) return ar.marker;
+    return next_marker();  // bytes the decoder did not need are skipped
+  }
+
+  // Figures F.19-F.24 for one DC difference, its context for the next.
+  void arith_dc(ArithReader& ar, uint8_t* bins, int tbl, int* last_dc, int* context) {
+    uint8_t* st = bins + *context;
+    if (ar.decode(st) == 0) {
+      *context = 0;
+      return;
+    }
+    const int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m) {
+      st = bins + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("JPEG: corrupt data (bad arithmetic code)");
+        ++st;
+      }
+    }
+    if (m < ((1 << dc_l_[tbl]) >> 1))
+      *context = 0;
+    else if (m > ((1 << dc_u_[tbl]) >> 1))
+      *context = 12 + sign * 4;
+    else
+      *context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    *last_dc = (*last_dc + v) & 0xffff;
+  }
+
+  // The magnitude and its bits of a nonzero AC value at index k, st its
+  // SE bin (Figures F.21-F.24).
+  static int arith_ac_value(ArithReader& ar, uint8_t* bins, uint8_t* st, int k, int kx,
+                            uint8_t* fixed) {
+    const int sign = ar.decode(fixed);
+    st += 2;
+    int m = ar.decode(st);
+    if (m && ar.decode(st)) {
+      m <<= 1;
+      st = bins + (k <= kx ? 189 : 217);
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("JPEG: corrupt data (bad arithmetic code)");
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  static void arith_ac_sequential(ArithReader& ar, uint8_t* bins, int kx, uint8_t* fixed,
+                                  int16_t* blk) {
+    int k = 0;
+    do {
+      uint8_t* st = bins + 3 * k;
+      if (ar.decode(st)) break;  // EOB
+      for (;;) {
+        ++k;
+        if (ar.decode(st + 1)) break;
+        st += 3;
+        if (k >= 63) fail("JPEG: corrupt data (bad arithmetic code)");
+      }
+      blk[kNatural[k]] = int16_t(arith_ac_value(ar, bins, st, k, kx, fixed));
+    } while (k < 63);
+  }
+
+  static void arith_ac_first(ArithReader& ar, uint8_t* bins, int kx, uint8_t* fixed,
+                             int16_t* blk, int ss, int se, int al) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = bins + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) fail("JPEG: corrupt data (bad arithmetic code)");
+      }
+      blk[kNatural[k]] = int16_t(unsigned(arith_ac_value(ar, bins, st, k, kx, fixed)) << al);
+    }
+  }
+
+  static void arith_ac_refine(ArithReader& ar, uint8_t* bins, uint8_t* fixed, int16_t* blk,
+                              int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = int(~0u << al);
+    int kex = se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = bins + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {  // previously nonzero
+          if (ar.decode(st + 2)) *coef = int16_t(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {  // newly nonzero
+          *coef = int16_t(ar.decode(fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) fail("JPEG: corrupt data (bad arithmetic code)");
+      }
+    }
+  }
+
+  // -------------------------------------------------------------- lossless
+
+  // jdlhuff.c decodes one difference a sample, jddiffct.c undoes them an
+  // iMCU row (v rows of each component) at a time: a restart anywhere in
+  // the row sends the row's first line back to the initial predictor.
+  int read_lossless_scan(Component** scan, int ns, int ss, int se, int ah, int al) {
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
+      fail("JPEG: invalid lossless scan parameters");
+    const int mcus_x = ns == 1 ? scan[0]->bw : mcux_, mcus_y = ns == 1 ? scan[0]->bh : mcuy_;
+    if (restart_interval_ % mcus_x)
+      fail("JPEG: a lossless restart interval that is not a whole number of MCU rows");
+    Derived* dc[4];
+    for (int i = 0; i < ns; ++i) {
+      if (scan[i]->dc_tbl >= 4) fail("JPEG: Huffman table was not defined");
+      make_derived(dc_[scan[i]->dc_tbl], true, scan[i]->dc_tbl, &derived_dc_[i], 16);
+      dc[i] = &derived_dc_[i];
+    }
+    // the iMCU rows whose first line predicts from the initial value: the
+    // scan's first and each in which a restart falls (an iMCU row is one
+    // MCU row of an interleaved scan, v of a one-component scan)
+    const int mcu_rows_per_imcu = ns == 1 ? scan[0]->v : 1;
+    std::vector<uint8_t> first(size_t(mcus_y / mcu_rows_per_imcu) + 1, 0);
+    first[0] = 1;
+    BitReader br{d_, n_, pos_};
+    br.reset(pos_);
+    const int rows_per_restart = restart_interval_ / mcus_x;
+    int rows_to_go = rows_per_restart;
+    next_restart_ = 0;
+    for (int my = 0; my < mcus_y; ++my) {
+      if (restart_interval_) {
+        if (rows_to_go == 0) {
+          int m = br.marker;
+          pos_ = br.pos;
+          if (m < 0) m = next_marker();
+          check_restart(m);
+          br.reset(pos_);
+          first[size_t(my / mcu_rows_per_imcu)] = 1;
+          rows_to_go = rows_per_restart;
+        }
+        --rows_to_go;
+      }
+      for (int mx = 0; mx < mcus_x; ++mx)
+        for (int i = 0; i < ns; ++i) {
+          Component* c = scan[i];
+          const int bh = ns == 1 ? 1 : c->v, bwn = ns == 1 ? 1 : c->h;
+          for (int y = 0; y < bh; ++y)
+            for (int x = 0; x < bwn; ++x) {
+              int s = br.decode(*dc[i]);
+              if (s == 16)
+                s = 32768;
+              else if (s)
+                s = extend(br.bits(s), s);
+              const size_t row = size_t(ns == 1 ? my : my * c->v + y);
+              c->diffs[row * c->bwp + (ns == 1 ? mx : mx * c->h + x)] = s;
+            }
+        }
+    }
+    for (int i = 0; i < ns; ++i) undifference(*scan[i], ss, al, first);
+    pos_ = br.pos;
+    if (br.marker >= 0) return br.marker;
+    return next_marker();
+  }
+
+  // jdlossls.c: the differences back to samples (16-bit wrap), then the
+  // point transform undone into 8 bits.
+  void undifference(Component& c, int predictor, int al, const std::vector<uint8_t>& first) {
+    std::vector<int32_t> prev(size_t(c.bw)), cur(size_t(c.bw));
+    for (int r = 0; r < c.bh; ++r) {
+      const int32_t* diff = c.diffs.data() + size_t(r) * c.bwp;
+      if (r % c.v == 0 && first[size_t(r / c.v)]) {
+        int32_t ra = (diff[0] + (1 << (8 - al - 1))) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < c.bw; ++x) cur[x] = ra = (diff[x] + ra) & 0xFFFF;
+      } else {
+        int64_t rb = prev[0], ra = (diff[0] + rb) & 0xFFFF, rc;
+        cur[0] = int32_t(ra);
+        for (int x = 1; x < c.bw; ++x) {
+          rc = rb;
+          rb = prev[x];
+          int64_t p;
+          switch (predictor) {
+            case 1: p = ra; break;
+            case 2: p = rb; break;
+            case 3: p = rc; break;
+            case 4: p = ra + rb - rc; break;
+            case 5: p = ra + ((rb - rc) >> 1); break;
+            case 6: p = rb + ((ra - rc) >> 1); break;
+            default: p = (ra + rb) >> 1; break;
+          }
+          ra = (diff[x] + int32_t(p)) & 0xFFFF;
+          cur[x] = int32_t(ra);
+        }
+      }
+      uint8_t* out = c.samples.data() + size_t(r) * c.bw;
+      for (int x = 0; x < c.bw; ++x) out[x] = uint8_t(unsigned(cur[x]) << al);
+      std::swap(prev, cur);
+    }
+  }
+
+  // ------------------------------------------------------------ the output
+
   // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
   // file whose scans leave low-order coefficients unrefined.
   bool smoothing_applies() const {
@@ -1171,25 +1621,140 @@ class JpegDecoder {
     return useful;
   }
 
-  // The output pass: IDCT, upsampling, colour conversion.
-  void finish(Image* out) {
-    if (smoothing_applies())
-      fail(std::string("JPEG: a progressive file whose scans leave coefficients unrefined "
-                       "(libjpeg's block smoothing) is not decoded (") + kUnsupportedItem + ")");
-    const ColourTables& tab = colour_tables();
+  // Each component's samples at full size: IDCT (or the lossless samples),
+  // upsampling.
+  std::vector<std::vector<uint8_t>> planes() {
+    if (lossless_)
+      for (const auto& c : comps_)
+        if (!c.scanned) fail("JPEG: a lossless file whose scans leave a component out");
     int nc = int(comps_.size());
     std::vector<std::vector<uint8_t>> full(nc);
+    const bool smooth = smoothing_applies();
     for (int ci = 0; ci < nc; ++ci) {
       Component& c = comps_[ci];
+      if (lossless_) {  // no fancy upsampling: libjpeg's blocks are one sample
+        full[ci] = upsample(c, c.samples, size_t(c.bw), false);
+        continue;
+      }
       size_t stride = size_t(c.bw) * 8;
       std::vector<uint8_t> plane(stride * size_t(c.bh) * 8);
       int16_t q[64];
       for (int i = 0; i < 64; ++i) q[i] = int16_t(c.quant[i]);
+      int16_t ws[64];
       for (int by = 0; by < c.bh; ++by)
-        for (int bx = 0; bx < c.bw; ++bx)
-          idct_islow(c.block(bx, by), q, plane.data() + size_t(by) * 8 * stride + bx * 8, stride);
-      full[ci] = upsample(c, plane, stride);
+        for (int bx = 0; bx < c.bw; ++bx) {
+          const int16_t* blk = c.block(bx, by);
+          if (smooth) {
+            smooth_block(c, bx, by, ws);
+            blk = ws;
+          }
+          idct_islow(blk, q, plane.data() + size_t(by) * 8 * stride + bx * 8, stride);
+        }
+      full[ci] = upsample(c, plane, stride, true);
     }
+    return full;
+  }
+
+  // jdcoefct.c decompress_smooth_data as libjpeg-turbo 2.1+ has it: the
+  // still-zero coefficients 1-9 of a block estimated from the 5 x 5 DC
+  // neighbourhood (and the DC too when no AC scan reached them), edge blocks
+  // repeated. The rows above and below follow libjpeg's indexing, which
+  // counts the last iMCU row's block rows as if every iMCU row had as many.
+  void smooth_block(Component& c, int bx, int by, int16_t* ws) const {
+    const int v = c.v;
+    const int total_imcu = (c.bh + v - 1) / v;  // jdinput.c total_iMCU_rows
+    const int imcu = by / v, block_row = by % v;
+    int block_rows = v;
+    if (imcu == total_imcu - 1) {
+      block_rows = c.bh % v;
+      if (block_rows == 0) block_rows = v;
+    }
+    const int image_block_row = imcu * block_rows + block_row;
+    const int image_block_rows = block_rows * total_imcu;
+    const int prev = image_block_row > 0 ? by - 1 : by;
+    const int prev_prev = image_block_row > 1 ? by - 2 : prev;
+    const int next = image_block_row < image_block_rows - 1 ? by + 1 : by;
+    const int next_next = image_block_row < image_block_rows - 2 ? by + 2 : next;
+    const int rows[5] = {prev_prev, prev, by, next, next_next};
+    const int last_col = c.bw - 1;
+    int dc[25];  // DC01..DC25, row by row
+    for (int r = 0; r < 5; ++r)
+      for (int k = 0; k < 5; ++k) {
+        const int col = std::min(std::max(bx + k - 2, 0), last_col);
+        dc[r * 5 + k] = c.block(col, rows[r])[0];
+      }
+    auto DC = [&](int i) -> int64_t { return dc[i - 1]; };
+    std::memcpy(ws, c.block(bx, by), 64 * sizeof(int16_t));
+    const int* bits = c.coef_bits;
+    const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 && bits[4] == -1 &&
+                           bits[5] == -1 && bits[6] == -1 && bits[7] == -1 && bits[8] == -1 &&
+                           bits[9] == -1;
+    const int64_t q00 = c.quant[0];
+    auto predict = [&](int coef_bit, int pos, int64_t sum) {
+      const int al = bits[coef_bit];
+      if (al == 0 || ws[pos] != 0) return;
+      const int64_t q = c.quant[pos];
+      const int64_t num = q00 * sum;
+      int pred;
+      if (num >= 0) {
+        pred = int(((q << 7) + num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = int(((q << 7) - num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      ws[pos] = int16_t(pred);
+    };
+    // AC01
+    predict(1, 1, change_dc ? -DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) -
+                                  13 * DC(9) + 3 * DC(10) - 3 * DC(11) + 38 * DC(12) -
+                                  38 * DC(14) + 3 * DC(15) - 3 * DC(16) + 13 * DC(17) -
+                                  13 * DC(19) + 3 * DC(20) - DC(21) - DC(22) + DC(24) + DC(25)
+                            : -7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15));
+    // AC10
+    predict(2, 8, change_dc ? -DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) - DC(6) +
+                                  13 * DC(7) + 38 * DC(8) + 13 * DC(9) - DC(10) + DC(16) -
+                                  13 * DC(17) - 38 * DC(18) - 13 * DC(19) + DC(20) + DC(21) +
+                                  3 * DC(22) + 3 * DC(23) + 3 * DC(24) + DC(25)
+                            : -7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23));
+    // AC20
+    predict(3, 16, change_dc ? DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) -
+                                   14 * DC(13) - 5 * DC(14) + 2 * DC(17) + 7 * DC(18) +
+                                   2 * DC(19) + DC(23)
+                             : -DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) - DC(23));
+    // AC11
+    predict(4, 9, change_dc ? -DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) +
+                                  9 * DC(19) + DC(21) - DC(25)
+                            : DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) - DC(20) +
+                                  DC(22) - DC(24) + DC(4) - DC(6) + 10 * DC(7) - 10 * DC(9));
+    // AC02
+    predict(5, 2, change_dc ? 2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) -
+                                  14 * DC(13) + 7 * DC(14) + DC(15) + 2 * DC(17) - 5 * DC(18) +
+                                  2 * DC(19)
+                            : -DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) - DC(15));
+    if (!change_dc) return;
+    predict(6, 3, DC(7) - DC(9) + 2 * DC(12) - 2 * DC(14) + DC(17) - DC(19));       // AC03
+    predict(7, 10, DC(7) - 3 * DC(8) + DC(9) - DC(17) + 3 * DC(18) - DC(19));       // AC12
+    predict(8, 17, DC(7) - DC(9) - 3 * DC(12) + 3 * DC(14) + DC(17) - DC(19));      // AC21
+    predict(9, 24, DC(7) + 2 * DC(8) + DC(9) - DC(17) - 2 * DC(18) - DC(19));       // AC30
+    const int64_t num =
+        q00 * (-2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5) - 6 * DC(6) +
+               6 * DC(7) + 42 * DC(8) + 6 * DC(9) - 6 * DC(10) - 8 * DC(11) + 42 * DC(12) +
+               152 * DC(13) + 42 * DC(14) - 8 * DC(15) - 6 * DC(16) + 6 * DC(17) + 42 * DC(18) +
+               6 * DC(19) - 6 * DC(20) - 2 * DC(21) - 6 * DC(22) - 8 * DC(23) - 6 * DC(24) -
+               2 * DC(25));
+    ws[0] = int16_t(num >= 0 ? ((q00 << 7) + num) / (q00 << 8)
+                             : -(((q00 << 7) - num) / (q00 << 8)));
+  }
+
+  // The output pass: the planes, colour conversion.
+  void finish(Image* out) {
+    if (lossless_ && space_ != CS_GREY && space_ != CS_RGB && space_ != CS_CMYK)
+      fail(std::string("JPEG: a lossless file in ") + (space_ == CS_YCC ? "YCbCr" : "YCCK") +
+           " is not decoded: libjpeg does not convert the colours of a lossless file");
+    std::vector<std::vector<uint8_t>> full = planes();
+    const ColourTables& tab = colour_tables();
     out->h = height_;
     out->w = width_;
     size_t npix = size_t(width_) * height_;
@@ -1226,21 +1791,17 @@ class JpegDecoder {
           }
           cmyk[3] = full[3][i];
           // PIL reads Adobe's inverted CMYK ("CMYK;I"), then cmyk2rgb
-          int nk = cmyk[3];  // 255 - (255 - k)
-          for (int k = 0; k < 3; ++k) {
-            int inv = 255 - cmyk[k];
-            int t = inv * nk + 128;
-            int v = nk - (((t >> 8) + t) >> 8);
-            o[3 * i + k] = uint8_t(std::min(255, std::max(0, v)));
-          }
+          ssr::pil_cmyk_to_rgb(uint8_t(255 - cmyk[0]), uint8_t(255 - cmyk[1]),
+                               uint8_t(255 - cmyk[2]), uint8_t(255 - cmyk[3]), o + 3 * i);
         }
         break;
     }
   }
 
-  // jdsample.c: the component's samples at full size, width_ x height_.
+  // jdsample.c: the component's samples at full size, width_ x height_;
+  // box replication where `fancy` is off.
   std::vector<uint8_t> upsample(const Component& c, const std::vector<uint8_t>& plane,
-                                size_t stride) const {
+                                size_t stride, bool fancy) const {
     std::vector<uint8_t> out(size_t(width_) * height_);
     int hx = maxh_ / c.h, vx = maxv_ / c.v;
     bool h2 = c.h * 2 == maxh_, v1 = c.v == maxv_, v2 = c.v * 2 == maxv_;
@@ -1254,7 +1815,7 @@ class JpegDecoder {
       return out;
     }
     std::vector<uint8_t> line(size_t(dw) * 2 + 2);
-    if (h2 && v1 && dw > 2) {  // h2v1 fancy
+    if (fancy && h2 && v1 && dw > 2) {  // h2v1 fancy
       for (int y = 0; y < height_; ++y) {
         const uint8_t* in = row(y);
         uint8_t* o = line.data();
@@ -1273,7 +1834,7 @@ class JpegDecoder {
       }
       return out;
     }
-    if (c.h == maxh_ && v2) {  // h1v2 fancy
+    if (fancy && c.h == maxh_ && v2) {  // h1v2 fancy
       for (int y = 0; y < height_; ++y) {
         int r = y >> 1;
         const uint8_t* in0 = row(r);
@@ -1284,7 +1845,7 @@ class JpegDecoder {
       }
       return out;
     }
-    if (h2 && v2 && dw > 2) {  // h2v2 fancy
+    if (fancy && h2 && v2 && dw > 2) {  // h2v2 fancy
       for (int y = 0; y < height_; ++y) {
         int r = y >> 1;
         const uint8_t* in0 = row(r);
@@ -1322,14 +1883,17 @@ class JpegDecoder {
   const uint8_t* d_;
   size_t n_;
   size_t pos_ = 0;
+  bool tables_only_ = false;
   HuffTable dc_[4], ac_[4];
   Derived derived_dc_[4], derived_ac_[4];
   uint16_t qt_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
-  int restart_interval_ = 0;
+  int dc_l_[16], dc_u_[16], ac_k_[16];  // DAC conditioning
+  int restart_interval_ = 0, next_restart_ = 0;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = 0;
-  bool sof_ = false, progressive_ = false, single_scan_ = false;
+  bool sof_ = false, progressive_ = false, arith_ = false, lossless_ = false;
+  bool single_scan_ = false;
   int scan_number_ = 0;
   int width_ = 0, height_ = 0, maxh_ = 1, maxv_ = 1, mcux_ = 0, mcuy_ = 0;
   std::vector<Component> comps_;
@@ -1342,6 +1906,8 @@ void decode_bytes(const uint8_t* data, size_t n, int grey16, Image* out) {
   if (n >= 8 && std::memcmp(data, kPngSignature, 8) == 0) {
     decode_png(data, n, grey16, out);
   } else if (n >= 2 && data[0] == 0xFF && data[1] == 0xD8) {
+    // PIL identifies a JPEG file by FF D8 FF
+    if (n < 3 || data[2] != 0xFF) fail("JPEG: not a JPEG file (no marker after SOI)");
     JpegDecoder(data, n).decode(out);
   } else if (ssr::is_webp(data, n)) {
     ssr::decode_webp(data, n, out);
@@ -1552,6 +2118,22 @@ class Loader {
 };
 
 }  // namespace
+
+namespace ssr {
+
+void decode_jpeg_segment(const uint8_t* tables, size_t tables_size, const uint8_t* d, size_t n,
+                         bool ycbcr_to_rgb, JpegSegment* out) {
+  try {
+    JpegDecoder dec(d, n);
+    if (tables_size) dec.load_tables(tables, tables_size);
+    dec.decode_samples(ycbcr_to_rgb, &out->channels, &out->w, &out->h, &out->samples);
+    out->sampling = dec.sampling();
+  } catch (const DecodeError& e) {
+    throw FormatError(std::string("TIFF: JPEG-in-TIFF: ") + e.what());
+  }
+}
+
+}  // namespace ssr
 
 extern "C" {
 

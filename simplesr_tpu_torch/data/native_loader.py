@@ -5,7 +5,8 @@ The library is built at first use with ``g++`` (``$CXX``, else ``g++`` on
 ``PATH``) from ``loader.cpp``, the JPEG encoder ``jpeg_encode.cpp`` and the
 WebP, GIF and TIFF decoders (``webp.cpp``, ``gif.cpp``, ``tiff.cpp``, with
 their header ``formats.h``), and linked against zlib; nothing of CUDA or
-PyTorch is compiled. It lives under the git-ignored
+PyTorch is compiled. Each source compiles in a process of its own, all at
+once, before one link. It lives under the git-ignored
 ``simplesr_tpu_torch/_build/``, named by a hash of every source and header,
 the flags and the compiler (its path and version), and is written to a
 temporary file that is renamed into place, so that several processes can
@@ -41,6 +42,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -93,24 +95,45 @@ def compiler_version():
 
 
 def build():
-    """Compile the sources if their library is missing; return its path."""
+    """Compile the sources if their library is missing; return its path.
+    Each source compiles in a compiler process of its own, all at once;
+    then one link."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [find_cxx(), *CXX_FLAGS, *map(str, SOURCES), "-o", str(tmp), *LIBS]
+    stem = path.with_name(f"{path.stem}.{os.getpid()}.{threading.get_ident()}")
+    objects = [stem.with_name(f"{stem.name}.{source.stem}.o") for source in SOURCES]
+    tmp = stem.with_name(f"{stem.name}.tmp.so")
+    cxx = find_cxx()
+    compile_flags = [f for f in CXX_FLAGS if f != "-shared"]
+    steps = [[[cxx, *compile_flags, "-c", str(s), "-o", str(o)] for s, o in zip(SOURCES, objects)],
+             [[cxx, *CXX_FLAGS, *map(str, objects), "-o", str(tmp), *LIBS]]]
+    deadline = time.monotonic() + BUILD_TIMEOUT_S
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
+        for commands in steps:
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in commands]
+            try:
+                outputs = [p.communicate(timeout=max(deadline - time.monotonic(), 0))[0]
+                           for p in procs]
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(f"the host loader's build did not finish in "
+                                   f"{BUILD_TIMEOUT_S} s") from e
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for cmd, p, out in zip(commands, procs, outputs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"the host loader's build failed ({p.returncode}):\n"
+                                       f"{' '.join(cmd)}\n{out}")
+        os.replace(tmp, path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"the host loader's build did not finish in {BUILD_TIMEOUT_S} s") \
-            from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"the host loader's build failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
+        for o in objects:
+            o.unlink(missing_ok=True)
     return path
 
 

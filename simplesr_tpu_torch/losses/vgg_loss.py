@@ -105,6 +105,16 @@ class VGGLoss(Loss):
             loss = loss + self.total_variation_weight * total_variation(sr_batch)
         return loss, ({self.name: loss} if self.track_metrics else {})
 
+    def visualize_feature_maps(self, picture, denormalize=True):
+        """The feature maps of ``picture`` (NHWC, in [-1, 1] unless
+        ``denormalize`` is off) at each output layer, NHWC, as the JAX
+        package's method gives them."""
+        p = torch.as_tensor(picture).float()
+        if denormalize:
+            p = (p + 1.0) * 127.5
+        with torch.no_grad():
+            return [f.permute(0, 2, 3, 1) for f in self.features(p)]
+
     def __str__(self):
         return (f"## Vgg Loss\n"
                 f"output layers: {list(self.output_layers)}\n"

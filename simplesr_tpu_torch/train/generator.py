@@ -132,6 +132,21 @@ class Generator:
         """The module's variables in flax's layout (CPU copies)."""
         return to_flax_variables(self._module.state_dict())
 
+    def set_variables(self, variables):
+        """Load ``variables`` (flax's layout, as ``variables`` gives them)
+        into the module."""
+        self._module.load_state_dict(from_flax_variables(self._module, variables))
+
+    def set_model(self, module, variables=None):
+        """Use ``module`` as the generator, with ``variables`` loaded into it
+        when given."""
+        self._module = module
+        if variables is not None:
+            self.set_variables(variables)
+
+    def loss_functions(self):
+        return self._loss_functions
+
     def module_config(self):
         if self._pretrained_config is not None:
             return dict(self._pretrained_config)

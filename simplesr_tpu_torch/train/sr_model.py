@@ -887,6 +887,17 @@ class SRModel:
         its path."""
         return self._latest(self._ckpt_dir)
 
+    def resume(self):
+        """Restore the newest best-state checkpoint of this run's checkpoint
+        directory (parameters, optimizer, step, best metric, RNG, EMA) and
+        return its step, or None when there is none."""
+        step, path = self.latest_checkpoint()
+        if step is None:
+            return None
+        self._restore(path)
+        self._iterations = self._step
+        return step
+
     def _load_generator(self, params):
         """The generator's whole parameters and buffers (onto the shards
         under fsdp)."""

@@ -1,5 +1,6 @@
 """The port's decoders of the formats that the JAX package opens through PIL
-beside PNG and JPEG (WebP, GIF, TIFF, netpbm, RLE BMP) against the JAX
+beside PNG and JPEG (WebP, GIF, TIFF, netpbm, RLE BMP; the JPEG processes
+beside baseline are in test_torch_jpeg_variants.py) against the JAX
 package's readers (``read_img`` and ``_read_img_u8``, which are PIL's
 ``convert("RGB")``) and its daemon's decode, bit for bit: the committed
 fixtures (data/corpus/image_formats/MANIFEST.json), files generated from a
@@ -27,7 +28,7 @@ from PIL import Image
 
 from _bmp_writer import rle_encode, write_bmp_rle
 from _gif_writer import write_gif
-from _tiff_writer import write_tiff
+from _tiff_writer import jpeg_chunks, write_tiff
 from _webp_writer import write_webp
 from simplesr_tpu.data.pipeline import _read_img_u8 as jax_read_img_u8
 from simplesr_tpu.data.pipeline import read_img as jax_read_img
@@ -97,6 +98,19 @@ def test_the_fixtures_cover_the_matrix():
     assert any(p.get("rows_per_strip") for p in tiffs) and any(p.get("big_endian") for p in tiffs)
     assert {p.get("bits") for p in tiffs} >= {1, 16} and any("orientation" in p for p in tiffs)
     assert any(p.get("photometric") == 0 for p in tiffs)
+    assert {p.get("compression") for p in tiffs if p.get("photometric") == 6} >= {
+        "jpeg", "lzw", "deflate"}
+    assert {tuple(p["ycbcr_subsampling"]) for p in tiffs if "ycbcr_subsampling" in p} >= {
+        (1, 1), (2, 1), (2, 2), (4, 2)}
+    assert any("reference_black_white" in p for p in tiffs)
+    assert any(p.get("compression") == "jpeg" and p.get("tile") for p in tiffs)
+    assert {p.get("mode") for p in tiffs if p.get("compression") == "jpeg"} >= {
+        "RGB", "L", "CMYK", "YCbCr"}
+    assert any(p.get("photometric") == 5 and p.get("bits") == 16 for p in tiffs)
+    assert any(p.get("photometric") == 5 and p.get("planar") for p in tiffs)
+    assert {p.get("sample_format", 1) for p in tiffs if p.get("bits") == 32} >= {1, 2, 3}
+    assert any(p.get("bigtiff") and p.get("tile") for p in tiffs)
+    assert sum(p.get("photometric") == 8 or p.get("mode") == "LAB" for p in tiffs) >= 2
     assert any("palette" in n for n in names)
     assert {(p["magic"], p.get("maxval")) for p in params if "magic" in p} >= {
         (m, v) for m in ("P2", "P3", "P5", "P6") for v in (255, 1000, 65535)} | {
@@ -128,6 +142,34 @@ def _generated(rng):
     yield "tiff grey16 tiles", write_tiff(g16, 1, 16, "lzw", 2, tile=(16, 16))
     yield "tiff orientation", write_tiff(crop.astype(np.int64), 2, 8, "packbits",  # PIL turns it
                                          extra_tags=[(274, 3, [int(rng.integers(1, 9))])])
+    ycc = np.asarray(Image.fromarray(crop).convert("YCbCr"))
+    sub = [(1, 1), (2, 1), (2, 2), (4, 2), (4, 4), (1, 2), (4, 1)][int(rng.integers(0, 7))]
+    yield "tiff ycbcr", write_tiff(ycc, 6, 8,
+                                   ["lzw", "deflate", "packbits"][int(rng.integers(0, 3))],
+                                   ycbcr_subsampling=sub,
+                                   rows_per_strip=sub[1] * int(rng.integers(1, 6)))
+    sampling = [(sub[0] % 3, sub[1] % 3), (1, 1), (1, 1)]
+    tile = (16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3))) \
+        if rng.random() < 0.5 else None
+    chunks, tables = jpeg_chunks(ycc, sampling, tile=tile, rows_per_strip=16,
+                                 quality_step=int(rng.integers(1, 20)))
+    yield "tiff jpeg", write_tiff(ycc, 6, 8, 7, tile=tile, rows_per_strip=16, chunks=chunks,
+                                  ycbcr_subsampling=sampling[0], extra_tags=[(347, 7, tables)])
+    k = (255 - crop.max(axis=2)).astype(np.int64)
+    cmyk = np.dstack([255 - crop.astype(np.int64) - k[:, :, None], k]).clip(0, 255)
+    yield "tiff cmyk", write_tiff(cmyk, 5, 8, ["none", "lzw", "packbits"][int(rng.integers(0, 3))],
+                                  big_endian=bool(rng.integers(0, 2)),
+                                  planar=bool(rng.integers(0, 2)))
+    floats = np.float32(crop[:, :, 0] * rng.random() * 2 - rng.integers(0, 100))
+    yield "tiff float", write_tiff(floats.view(np.uint32).astype(np.int64), 1, 32,
+                                   ["none", "deflate"][int(rng.integers(0, 2))], sample_format=3)
+    yield "tiff int32", write_tiff((crop[:, :, 2].astype(np.int64) * 2 - 100) & 0xFFFFFFFF, 1, 32,
+                                   "lzw", int(rng.integers(1, 3)), sample_format=2)
+    yield "tiff cielab", write_tiff(rng.integers(0, 256, crop.shape), 8, 8,
+                                    ["none", "lzw", "packbits"][int(rng.integers(0, 3))],
+                                    rows_per_strip=int(rng.integers(1, 24)))
+    yield "bigtiff", write_tiff(crop.astype(np.int64), 2, 8, "deflate", bigtiff=True,
+                                rows_per_strip=int(rng.integers(1, 24)))
     yield "ppm", b"P6 37 23 255\n" + crop.tobytes()
     yield "pgm 16-bit", b"P5 37 23 4095\n" + (crop[:, :, 0].astype(">u2") * 16).tobytes()
     yield "bmp rle8", write_bmp_rle(37, 23, pal, rle_encode(idx))
@@ -200,11 +242,13 @@ def _bmp_compressed(kind):
 
 REFUSALS = {
     "animated WebP": lambda: _webp_with_vp8x_flags(0x02),
-    "JPEG-in-TIFF": lambda: _tiff_with(compression=7),
+    "old-style JPEG": lambda: _tiff_with(compression=6),
     "CCITT": lambda: _tiff_with(compression=4),
-    "floating-point": lambda: write_tiff(np.zeros((2, 3), np.int64), 1, 32, sample_format=3),
-    "BigTIFF": lambda: b"II+\0\x08\0\0\0" + bytes(16),
-    "CMYK": lambda: _tiff_with(photometric=5),
+    "16-bit CIELab": lambda: write_tiff(np.zeros((2, 3, 3), np.int64), 8, 16),
+    "big-endian BigTIFF": lambda: write_tiff(np.zeros((2, 3), np.int64), 1, 8, bigtiff=True,
+                                            big_endian=True),
+    "uncompressed YCbCr": lambda: write_tiff(np.zeros((2, 4, 3), np.int64), 6, 8,
+                                             ycbcr_subsampling=(2, 2)),
     "fill order 2": lambda: _tiff_with(fill_order=2),
     "BMP JPEG compression": lambda: _bmp_compressed(4),
     "BMP PNG compression": lambda: _bmp_compressed(5),
@@ -217,6 +261,41 @@ REFUSALS = {
 def test_refusals_name_the_variant_and_the_roadmap(what):
     with pytest.raises(ValueError, match=f"{what}.*ROADMAP.md, Queue 1, item 3"):
         decode_image(REFUSALS[what]())
+
+
+def _jpeg_tiff():
+    ycc = np.asarray(Image.fromarray(GALLERY[:20, :30]).convert("YCbCr"))
+    chunks, tables = jpeg_chunks(ycc, [(2, 2), (1, 1), (1, 1)], rows_per_strip=16)
+    return write_tiff(ycc, 6, 8, 7, rows_per_strip=16, chunks=chunks, ycbcr_subsampling=(2, 2),
+                      extra_tags=[(347, 7, tables)])
+
+
+# variants the port refused before it had their decoders
+FORMERLY_REFUSED = {
+    "JPEG-in-TIFF": _jpeg_tiff,
+    "floating-point": lambda: write_tiff(np.full((2, 3), 0x42C80000, np.int64), 1, 32,
+                                         sample_format=3),
+    "BigTIFF": lambda: write_tiff(GALLERY[:5, :7].astype(np.int64), 2, 8, "lzw", bigtiff=True),
+    "CMYK": lambda: write_tiff(np.dstack([GALLERY[:4, :8], GALLERY[:4, :8, :1]]), 5, 8),
+    "CIELab": lambda: write_tiff(GALLERY[:4, :8].astype(np.int64), 8, 8),
+}
+
+
+@pytest.mark.parametrize("what", FORMERLY_REFUSED)
+def test_formerly_refused_variants_decode_as_pil(what):
+    data = FORMERLY_REFUSED[what]()
+    np.testing.assert_array_equal(decode_image(data), _pil(data))
+
+
+def test_cielab_sweep_decodes_as_pils_littlecms_transform():
+    """A million 8-bit Lab values (every L, a and b bytes in steps of 4 from
+    a seeded start) through Pillow's LittleCMS transform and the port's
+    table of it: equal everywhere."""
+    start = np.random.default_rng(7).integers(0, 4, 2)
+    lab = np.stack(np.meshgrid(np.arange(256), np.arange(start[0], 256, 4),
+                               np.arange(start[1], 256, 4), indexing="ij"), -1)
+    data = write_tiff(lab.reshape(1024, 1024, 3), 8, 8, "deflate", rows_per_strip=128)
+    np.testing.assert_array_equal(decode_image(data), _pil(data))
 
 
 @pytest.mark.parametrize("fmt", ["webp", "gif", "tiff", "pnm"])
@@ -326,7 +405,14 @@ SWEEP_SOURCES = ["webp_lossy_q50_17x33.webp", "webp_lossy_alpha_17x33.webp",
                  "gif_offset_frame_17x33_on_24x40.gif", "tiff_rgb_lzw_p2.tif",
                  "tiff_rgb_deflate_tiles.tif", "tiff_bilevel_packbits.tif",
                  "tiff_rgb_none_planar.tif", "ppm_p6_max1000.ppm", "ppm_p3_max255.ppm",
-                 "pbm_p4.pbm", "bmp_rle8_17x33.bmp", "bmp_rle4_17x33.bmp"]
+                 "pbm_p4.pbm", "bmp_rle8_17x33.bmp", "bmp_rle4_17x33.bmp",
+                 # the JPEG processes and TIFF variants of the slice after
+                 "jpeg_arith_seq_422_restart_dac_37x45.jpg",
+                 "jpeg_arith_prog_420_restart_48x64.jpg",
+                 "jpeg_lossless_420_adobe_rgb_37x45.jpg", "jpeg_lossless_p4_24x32.jpg",
+                 "jpeg_smooth_unrefined_48x64.jpg", "tiff_jpeg_compression.tif",
+                 "tiff_ycbcr22_lzw_37x45.tif", "tiff_cmyk16_deflate_p2_37x45.tif",
+                 "tiff_float32.tif", "tiff_bigtiff_lzw_37x45.tif"]
 
 
 def _variants(data, rng, truncations=8, flips=24):
@@ -362,5 +448,5 @@ def test_damaged_inputs_are_refused_or_decode_as_pil(tmp_path):
             kind = "as PIL"
         tally[fmt, kind] = tally.get((fmt, kind), 0) + 1
     # the sweep reached both outcomes for every format
-    for fmt in ("webp", "gif", "tiff", "ppm", "bmp"):
+    for fmt in ("webp", "gif", "tiff", "ppm", "bmp", "jpeg"):
         assert tally.get((fmt, "refused")) and tally.get((fmt, "as PIL")), (fmt, tally)

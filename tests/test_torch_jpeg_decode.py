@@ -25,7 +25,7 @@ import pytest
 from PIL import Image
 
 from _jax_loader import jax_native_loader
-from _jpeg_writer import write_jpeg
+from _jpeg_writer import write_jpeg, write_jpeg_arith, write_jpeg_lossless
 from _png_writer import write_png
 from simplesr_tpu_torch.data.image import decode_image, read_rgb_u8
 from simplesr_tpu_torch.data.native_loader import NativeLoader
@@ -142,18 +142,40 @@ def test_too_many_blocks_per_mcu_are_refused():
         decode_image(data)
 
 
-@pytest.mark.parametrize("sof,what", [(0xC3, "lossless"), (0xC5, "hierarchical"),
-                                      (0xC9, "arithmetic"), (0xCA, "arithmetic")])
+@pytest.mark.parametrize("sof,what", [(0xC5, "hierarchical"), (0xC6, "hierarchical"),
+                                      (0xC7, "hierarchical"), (0xCB, "lossless arithmetic"),
+                                      (0xCD, "hierarchical arithmetic")])
 def test_unsupported_processes_name_the_roadmap(sof, what):
+    """The processes libjpeg refuses, and so PIL with it."""
     data = bytearray(_jpeg(GALLERY[:16, :16], quality=90))
     data[data.index(b"\xff\xc0") + 1] = sof
+    with pytest.raises(OSError):
+        _pil(bytes(data))
     with pytest.raises(ValueError, match=f"{what}.*ROADMAP.md"):
         decode_image(bytes(data))
+
+
+@pytest.mark.parametrize("process", ["lossless", "arithmetic", "arithmetic progressive"])
+def test_lossless_and_arithmetic_processes_decode_as_pil(process):
+    """SOF3, SOF9 and SOF10, which the port refused before it had their
+    decoders (tests/test_torch_jpeg_variants.py holds them further)."""
+    ycc = np.asarray(Image.fromarray(GALLERY[:21, :30]).convert("YCbCr"))
+    planes = [ycc[:, :, i] for i in range(3)]
+    if process == "lossless":
+        rgb = GALLERY[:21, :30]
+        data = write_jpeg_lossless([rgb[:, :, i] for i in range(3)], 7, marker=None)
+    else:
+        scans = [((0, 1, 2), 0, 0, 0, 0), ((0,), 1, 63, 0, 0), ((1,), 1, 63, 0, 0),
+                 ((2,), 1, 63, 0, 0)] if process.endswith("progressive") else None
+        data = write_jpeg_arith(planes, [(2, 1), (1, 1), (1, 1)], scans=scans)
+    np.testing.assert_array_equal(decode_image(data), _pil(data))
 
 
 def test_twelve_bit_samples_name_the_roadmap():
     data = bytearray(_jpeg(GALLERY[:16, :16], quality=90))
     data[data.index(b"\xff\xc0") + 4] = 12
+    with pytest.raises(OSError):  # PIL reads only 8-bit frames
+        _pil(bytes(data))
     with pytest.raises(ValueError, match="12-bit.*ROADMAP.md"):
         decode_image(bytes(data))
 

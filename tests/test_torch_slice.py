@@ -352,6 +352,20 @@ def test_port_imports_only_torch_numpy_and_stdlib():
             assert top not in FORBIDDEN and top in allowed, f"{path}: imports {name}"
 
 
+def test_host_decoders_include_no_image_library():
+    """The host C++ behind the image readers (PNG, JPEG with its arithmetic,
+    lossless and smoothing paths, WebP, GIF, TIFF with JPEG strips and YCbCr)
+    includes the standard library, zlib and its own header, and no decoder
+    library (libjpeg, libpng, libtiff, libwebp, LittleCMS) or Python."""
+    sources = sorted((ROOT / "simplesr_tpu_torch/csrc/host").glob("*.[ch]*"))
+    assert {p.name for p in sources} >= {"loader.cpp", "tiff.cpp", "formats.h"}
+    for path in sources:
+        for line in path.read_text().splitlines():
+            if line.startswith("#include"):
+                header = line.split()[1].strip('<>"')
+                assert header in ("zlib.h", "formats.h") or "." not in header, (path, header)
+
+
 IMPORT_CHECK = """
 import sys
 import torch
