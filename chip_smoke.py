@@ -301,7 +301,19 @@ plain PyTorch version, in one process, with no arguments:
      each with the launch counts set to 0 just before and read just after:
      every reply bit-equal to ``upscale_files`` of the same file, one trunk
      launch a body; (c) a truncated WebP body gets status 1 and HTTP 400,
-     naming WebP.
+     naming WebP. Slice 15 adds the texture and icon formats: (a) every
+     fixture of data/corpus/texture_formats (DDS with its BC1-BC7 blocks,
+     TGA, ICO, CUR, QOI, PCX, DCX, SGI) against its manifest's digest, the
+     refusals named, and each format's one-thread MPix/s on its 96 x 128
+     timing tile; (b) the tile as a BC7 DDS, an RLE TGA and an ICO with a
+     PNG frame, served as above; (d) a 1024 x 1024 BC1 DDS made here from
+     a seed (a header over blocks whose end colours follow a seeded coarse
+     field) through ``upscale_files``: over the 1000-pixel threshold, it
+     takes the tiled route (one patch launch), and away from the seams
+     and edges where the flagship's receptive field passes the route's
+     overlap (LARGE_*_BAND) it equals the untiled upscale of the same
+     decoded array within ROUTE_*_TOL; the bands' differences are
+     printed.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -3914,6 +3926,7 @@ def denoising_phase(dev, work, launches_by_path, card):
 # manifest keeps (there is no PIL here), timed, and served.
 
 FORMATS_MANIFEST = ROOT / "data/corpus/image_formats/MANIFEST.json"
+TEXTURES_MANIFEST = ROOT / "data/corpus/texture_formats/MANIFEST.json"
 FORMAT_BODIES = {"webp_lossy": "timing_webp_lossy.webp",
                  "webp_lossless": "timing_webp_lossless.webp", "gif": "timing_gif.gif",
                  "tiff_lzw": "timing_tiff_lzw.tif", "ppm": "timing_ppm.ppm",
@@ -3925,6 +3938,55 @@ TIMED_BODIES = {"jpeg_baseline_pil": "timing_jpeg_baseline.jpg",
                 "jpeg_smoothed": "timing_jpeg_smooth.jpg", "tiff_ycbcr": "timing_tiff_ycbcr.tif",
                 "tiff_cmyk": "timing_tiff_cmyk.tif", "tiff_float32": "timing_tiff_float32.tif",
                 "tiff_cielab": "timing_tiff_cielab.tif", "bigtiff": "timing_tiff_bigtiff.tif"}
+# slice 15's formats, the tile in data/corpus/texture_formats: served, then timed only
+TEXTURE_BODIES = {"dds_bc7": "timing_dds_bc7.dds", "tga_rle": "timing_tga_rle.tga",
+                  "ico_png": "timing_ico_png.ico"}
+TEXTURE_TIMED = {"dds_bc1": "timing_dds_bc1.dds", "cur_dib8": "timing_cur_dib8.cur",
+                 "qoi": "timing_qoi.qoi", "pcx_rgb": "timing_pcx_rgb.pcx",
+                 "dcx_p": "timing_dcx_p.dcx", "sgi_rle": "timing_sgi_rle.sgi"}
+LARGE_TEXTURE = 1024  # the (d) texture's side: over upscale_files' 1000-pixel threshold
+LARGE_TEXTURE_SEED = 15
+# The flagship's receptive field reaches 39.5 LR px from a pixel (the 9 x 9
+# head 4, 32 trunk convs 32, the trunk conv 1, the tail's convs 2.5), past
+# the tiled route's 32 px overlap by 7.5: within that of a seam between
+# tiles a pixel's output sees other context tiled than untiled, and within
+# 39.5 of the image's edge the route's zero padding of the image differs
+# from each conv's own (test_torch_rrdb.py states the route's equality away
+# from both for a model inside the overlap). (d) holds the rest to the
+# route's bounds (ROUTE_*_TOL) and reports the bands.
+LARGE_SEAM_BAND = 32   # HR px each side of a seam (7.5 LR px, rounded up)
+LARGE_EDGE_BAND = 160  # HR px at the image's edges (39.5 LR px, rounded up)
+
+
+def seeded_bc1_texture(side, seed):
+    """A ``side`` x ``side`` DDS of BC1 blocks (DXT1): each block's two
+    colours from a seeded coarse field of colours, bilinearly spread over
+    the blocks, with seeded offsets and indices. The (d) texture of phase
+    18; no committed file."""
+    rng = np.random.default_rng(seed)
+    blocks = side // 4
+    coarse = rng.integers(0, 256, (9, 9, 3)).astype(np.float64)
+    t = np.linspace(0, 8, blocks)
+    i0 = np.minimum(t.astype(int), 7)
+    f = (t - i0)[:, None, None]
+    rows = coarse[i0] * (1 - f) + coarse[i0 + 1] * f  # (blocks, 9, 3)
+    f = (t - i0)[None, :, None]
+    field = rows[:, i0] * (1 - f) + rows[:, i0 + 1] * f  # (blocks, blocks, 3)
+
+    def rgb565(c):
+        c = np.clip(c, 0, 255).astype(np.int64)
+        return (c[..., 0] >> 3 << 11) | (c[..., 1] >> 2 << 5) | (c[..., 2] >> 3)
+
+    c0 = rgb565(field + rng.integers(0, 24, field.shape))
+    c1 = rgb565(field - rng.integers(0, 24, field.shape))
+    out = np.zeros((blocks, blocks, 8), np.uint8)
+    out[..., 0:2] = np.maximum(c0, c1).astype("<u2")[..., None].view(np.uint8)
+    out[..., 2:4] = np.minimum(c0, c1).astype("<u2")[..., None].view(np.uint8)
+    out[..., 4:8] = rng.integers(0, 256, (blocks, blocks, 4), dtype=np.uint8)
+    head = b"DDS " + struct.pack("<7I", 124, 0x1007, side, side, 0, 0, 0) + bytes(44)
+    head += struct.pack("<4I", 32, 0x4, struct.unpack("<I", b"DXT1")[0], 0) + bytes(16)
+    head += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    return head + out.tobytes()
 
 
 def image_formats_phase(dev, work, launches_by_path, card):
@@ -3937,16 +3999,18 @@ def image_formats_phase(dev, work, launches_by_path, card):
     from simplesr_tpu_torch.data.png import decode_png, encode_png, read_png
     from simplesr_tpu_torch.tools import serve as serve_mod
     from simplesr_tpu_torch.tools.http_gateway import serve_http
+    from simplesr_tpu_torch.eval.evaluation import _as_predictor
     from simplesr_tpu_torch.tools.upscale import upscale_files
 
-    start("18 image formats: WebP, GIF, TIFF, netpbm, RLE BMP and the JPEG processes decoded, "
-          "timed and served")
+    start("18 image formats: WebP, GIF, TIFF, netpbm, RLE BMP, the JPEG processes, DDS, TGA, "
+          "ICO, CUR, QOI, PCX, DCX and SGI decoded, timed and served")
     t_phase = time.perf_counter()
 
     # (a) every fixture against its digest of PIL's decode, the refusals
     manifest = json.loads(FORMATS_MANIFEST.read_text())
+    textures = json.loads(TEXTURES_MANIFEST.read_text())
     wrong, counts, refusals = [], {}, {}
-    for entry in manifest["files"]:
+    for entry in manifest["files"] + textures["files"]:
         data = (ROOT / entry["file"]).read_bytes()
         try:
             got = hashlib.sha256(decode_image(data, entry["file"]).tobytes()).hexdigest()
@@ -3963,6 +4027,8 @@ def image_formats_phase(dev, work, launches_by_path, card):
     bodies = {"png": encode_png(tile), "jpeg_q90": encode_jpeg(tile, 90)}
     bodies.update({k: (folder / f).read_bytes()
                    for k, f in {**FORMAT_BODIES, **TIMED_BODIES}.items()})
+    bodies.update({k: (TEXTURES_MANIFEST.parent / f).read_bytes()
+                   for k, f in {**TEXTURE_BODIES, **TEXTURE_TIMED}.items()})
     mpix = tile.shape[0] * tile.shape[1] / 1e6
     rates = {}
     for kind, body in bodies.items():
@@ -3970,7 +4036,8 @@ def image_formats_phase(dev, work, launches_by_path, card):
         rates[kind] = {"ms": ms, "mpix_per_s": mpix / ms * 1e3, "bytes": len(body)}
     log(18, check="(a) the corpus against its manifest's digests of PIL's decode, and each "
         f"decoder on one thread (median of {DECODE_RUNS}) on a {tile.shape[0]} x "
-        f"{tile.shape[1]} gallery tile", files=counts, pil=manifest["pil"], wrong=wrong,
+        f"{tile.shape[1]} gallery tile", files=counts, pil=[manifest["pil"], textures["pil"]],
+        wrong=wrong,
         refusals=refusals, decode=rates, card=card)
     if wrong:
         raise AssertionError(f"fixtures decoded unlike PIL: {wrong}")
@@ -3979,7 +4046,7 @@ def image_formats_phase(dev, work, launches_by_path, card):
     serve_dir = work / "formats_serve"
     serve_dir.mkdir()
     paths = []
-    for kind, name in FORMAT_BODIES.items():
+    for kind, name in {**FORMAT_BODIES, **TEXTURE_BODIES}.items():
         path = serve_dir / f"{kind}{Path(name).suffix}"
         path.write_bytes(bodies[kind])
         paths.append(path)
@@ -4038,7 +4105,7 @@ def image_formats_phase(dev, work, launches_by_path, card):
     launches_by_path["http_gateway_image_formats_posts"] = http_launches
     gateway_outs = [decode_png(body) if code == 200 else None for code, body in replies]
     result = {
-        "bodies": list(FORMAT_BODIES),
+        "bodies": list(FORMAT_BODIES) + list(TEXTURE_BODIES),
         "daemon_bit_equal": [np.array_equal(o, r) for o, r in zip(daemon_outs, refs)],
         "gateway_status": [code for code, _ in replies],
         "gateway_bit_equal": [o is not None and np.array_equal(o, r)
@@ -4054,12 +4121,60 @@ def image_formats_phase(dev, work, launches_by_path, card):
             and "WebP" in daemon_stub and broken_code == 400 and b"WebP" in broken_body
             and result["stopped"] and daemon_launches == want and http_launches == want):
         raise AssertionError(f"serving the image formats: {result}")
+
+    # (d) a large texture through the tiled route, against the untiled upscale
+    large = serve_dir / "large_bc1.dds"
+    large.write_bytes(seeded_bc1_texture(LARGE_TEXTURE, LARGE_TEXTURE_SEED))
+    t = time.perf_counter()
+    (written,), tiled_launches = counted(
+        lambda: upscale_files(FLAGSHIP, [large], serve_dir / "large", 4, device=dev))
+    tiled_s = time.perf_counter() - t
+    launches_by_path["upscale_files_large_dds_tiled"] = tiled_launches
+    lr = torch.from_numpy(decode_image(large.read_bytes()).astype(np.float32) / 255.0).to(dev)
+    predict = _as_predictor(FLAGSHIP, device=dev)
+    with torch.no_grad():
+        untiled, untiled_launches = counted(lambda: (predict(lr[None])[0] + 1.0) / 2.0)
+    tiled = torch.from_numpy(read_png(written).astype(np.float32) / 255.0).to(dev)
+    untiled = (untiled * 255.0).clamp(0, 255).floor() / 255.0  # as upscale_files writes it
+    side = 4 * LARGE_TEXTURE
+    pos = torch.arange(side, device=dev)
+    edge = (pos >= LARGE_EDGE_BAND) & (pos < side - LARGE_EDGE_BAND)
+    core = 4 * 128  # the route's tile, in HR px
+    away = edge & (pos % core >= LARGE_SEAM_BAND) & (pos % core < core - LARGE_SEAM_BAND)
+    keep = away[:, None] & away[None, :]
+    diff = ((tiled - untiled) * 2.0).abs().amax(-1)  # on the route's [-1, 1] scale
+    large_result = {
+        "texture": [LARGE_TEXTURE, LARGE_TEXTURE], "format": "DDS BC1 (DXT1)",
+        "seed": LARGE_TEXTURE_SEED, "out": list(tiled.shape),
+        "launches": {"tiled": tiled_launches, "untiled": untiled_launches},
+        "seconds_tiled": tiled_s,
+        "away_from_bands": {"share": keep.float().mean().item(),
+                            "max_abs": diff[keep].max().item(),
+                            "mean_abs": diff[keep].mean().item()},
+        "bands": {"max_abs": diff[~keep].max().item(), "mean_abs": diff[~keep].mean().item()},
+        "tol": {"max_abs": ROUTE_MAX_ABS_TOL, "mean_abs": ROUTE_MEAN_ABS_TOL}}
+    log(18, check="(d) a seeded 1024 x 1024 BC1 texture through upscale_files: the tiled "
+        "route against the untiled upscale of the same decoded array", **large_result,
+        card=card)
+    del lr, untiled, tiled, diff
+    away_from = large_result["away_from_bands"]
+    if not (tiled_launches["patches"] == 1 and tiled_launches["trunk"] >= 1
+            and untiled_launches == {"trunk": 1, "patches": 0}
+            and away_from["max_abs"] < ROUTE_MAX_ABS_TOL
+            and away_from["mean_abs"] < ROUTE_MEAN_ABS_TOL):
+        raise AssertionError(f"the large texture's tiled route: {large_result}")
     return {"name": "host image-format decoders", "route": "host C++ (g++, zlib) and numpy",
             "source": ["simplesr_tpu_torch/csrc/host/loader.cpp",
                        "simplesr_tpu_torch/csrc/host/webp.cpp",
                        "simplesr_tpu_torch/csrc/host/gif.cpp",
                        "simplesr_tpu_torch/csrc/host/tiff.cpp",
-                       "simplesr_tpu_torch/data/pnm.py", "simplesr_tpu_torch/data/bmp.py"],
+                       "simplesr_tpu_torch/csrc/host/dds.cpp",
+                       "simplesr_tpu_torch/csrc/host/tga.cpp",
+                       "simplesr_tpu_torch/csrc/host/qoi.cpp",
+                       "simplesr_tpu_torch/csrc/host/pcx.cpp",
+                       "simplesr_tpu_torch/csrc/host/sgi.cpp",
+                       "simplesr_tpu_torch/data/pnm.py", "simplesr_tpu_torch/data/bmp.py",
+                       "simplesr_tpu_torch/data/ico.py"],
             "replaces": "PIL's convert('RGB') (simplesr_tpu/data/pipeline.py:57-72, "
                         "simplesr_tpu/tools/serve.py:319, simplesr_tpu/tools/http_gateway.py:90)",
             "fixtures": counts, "tile": list(tile.shape),

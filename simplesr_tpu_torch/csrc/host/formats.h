@@ -1,8 +1,14 @@
 // The host decoders of the formats that the JAX package opens through PIL
-// beside PNG and JPEG: WebP (webp.cpp), GIF (gif.cpp) and TIFF (tiff.cpp).
-// Each decodes the first image of a file in memory to 8-bit RGB as PIL 12.1's
-// Image.open(...).convert("RGB") gives it, and throws FormatError, naming the
-// format, for a file it refuses. loader.cpp dispatches to them by magic bytes.
+// beside PNG and JPEG: WebP (webp.cpp), GIF (gif.cpp), TIFF (tiff.cpp), DDS
+// (dds.cpp), TGA (tga.cpp), QOI (qoi.cpp), PCX and DCX (pcx.cpp) and SGI
+// (sgi.cpp). Each decodes the first image of a file in memory to 8-bit RGB as
+// PIL 12.1's Image.open(...).convert("RGB") gives it, and throws FormatError,
+// naming the format, for a file it refuses. loader.cpp dispatches to them in
+// the order of PIL's Image.ID: by magic bytes, and for the formats after
+// slice 14 by the `*_claims` tests, which say whether PIL's plugin opens the
+// file or rejects it at open time in a way that lets Image.open try the next
+// plugin (a SyntaxError, IndexError, TypeError, KeyError, EOFError or
+// struct.error, or an empty size). TGA has no magic: it comes last.
 //
 // Every length, offset and code read from the file is checked against the
 // buffer before it is used: request bodies come from outside the program.
@@ -73,9 +79,21 @@ void decode_jpeg_segment(const uint8_t* tables, size_t tables_size, const uint8_
 bool is_webp(const uint8_t* d, size_t n);
 bool is_gif(const uint8_t* d, size_t n);
 bool is_tiff(const uint8_t* d, size_t n);
+bool pcx_claims(const uint8_t* d, size_t n);
+bool dcx_claims(const uint8_t* d, size_t n);
+bool dds_claims(const uint8_t* d, size_t n);
+bool qoi_claims(const uint8_t* d, size_t n);
+bool sgi_claims(const uint8_t* d, size_t n);
+bool tga_claims(const uint8_t* d, size_t n);
 
 void decode_webp(const uint8_t* d, size_t n, RgbImage* out);
 void decode_gif(const uint8_t* d, size_t n, RgbImage* out);
 void decode_tiff(const uint8_t* d, size_t n, RgbImage* out);
+void decode_pcx(const uint8_t* d, size_t n, RgbImage* out);
+void decode_dcx(const uint8_t* d, size_t n, RgbImage* out);
+void decode_dds(const uint8_t* d, size_t n, RgbImage* out);
+void decode_qoi(const uint8_t* d, size_t n, RgbImage* out);
+void decode_sgi(const uint8_t* d, size_t n, RgbImage* out);
+void decode_tga(const uint8_t* d, size_t n, RgbImage* out);
 
 }  // namespace ssr

@@ -1902,21 +1902,43 @@ class JpegDecoder {
 
 // ================================================================ dispatch
 
+// The kinds the library decodes, in the order of PIL's Image.ID (TGA, which
+// has no magic, last); the numbers are ssr_image_kind's.
+enum Kind { kNone, kPng, kJpeg, kWebp, kGif, kTiff, kPcx, kDcx, kDds, kQoi, kSgi, kTga };
+
+Kind image_kind(const uint8_t* data, size_t n) {
+  if (n >= 8 && std::memcmp(data, kPngSignature, 8) == 0) return kPng;
+  if (n >= 2 && data[0] == 0xFF && data[1] == 0xD8) return kJpeg;
+  if (ssr::is_webp(data, n)) return kWebp;
+  if (ssr::is_gif(data, n)) return kGif;
+  if (ssr::is_tiff(data, n)) return kTiff;
+  if (ssr::pcx_claims(data, n)) return kPcx;
+  if (ssr::dcx_claims(data, n)) return kDcx;
+  if (ssr::dds_claims(data, n)) return kDds;
+  if (ssr::qoi_claims(data, n)) return kQoi;
+  if (ssr::sgi_claims(data, n)) return kSgi;
+  if (ssr::tga_claims(data, n)) return kTga;
+  return kNone;
+}
+
 void decode_bytes(const uint8_t* data, size_t n, int grey16, Image* out) {
-  if (n >= 8 && std::memcmp(data, kPngSignature, 8) == 0) {
-    decode_png(data, n, grey16, out);
-  } else if (n >= 2 && data[0] == 0xFF && data[1] == 0xD8) {
-    // PIL identifies a JPEG file by FF D8 FF
-    if (n < 3 || data[2] != 0xFF) fail("JPEG: not a JPEG file (no marker after SOI)");
-    JpegDecoder(data, n).decode(out);
-  } else if (ssr::is_webp(data, n)) {
-    ssr::decode_webp(data, n, out);
-  } else if (ssr::is_gif(data, n)) {
-    ssr::decode_gif(data, n, out);
-  } else if (ssr::is_tiff(data, n)) {
-    ssr::decode_tiff(data, n, out);
-  } else {
-    fail("not a PNG, JPEG, WebP, GIF or TIFF file");
+  switch (image_kind(data, n)) {
+    case kPng: decode_png(data, n, grey16, out); break;
+    case kJpeg:
+      // PIL identifies a JPEG file by FF D8 FF
+      if (n < 3 || data[2] != 0xFF) fail("JPEG: not a JPEG file (no marker after SOI)");
+      JpegDecoder(data, n).decode(out);
+      break;
+    case kWebp: ssr::decode_webp(data, n, out); break;
+    case kGif: ssr::decode_gif(data, n, out); break;
+    case kTiff: ssr::decode_tiff(data, n, out); break;
+    case kPcx: ssr::decode_pcx(data, n, out); break;
+    case kDcx: ssr::decode_dcx(data, n, out); break;
+    case kDds: ssr::decode_dds(data, n, out); break;
+    case kQoi: ssr::decode_qoi(data, n, out); break;
+    case kSgi: ssr::decode_sgi(data, n, out); break;
+    case kTga: ssr::decode_tga(data, n, out); break;
+    default: fail("not a PNG, JPEG, WebP, GIF or TIFF file, nor a DDS, TGA, QOI, PCX, DCX or SGI one");
   }
 }
 
@@ -2177,9 +2199,18 @@ const char* ssr_last_error(void) { return last_error.c_str(); }
 // The encoder's refusals (jpeg_encode.cpp) go where ssr_last_error reads.
 void ssr_set_last_error(const char* msg) { last_error = msg; }
 
-// Decode PNG, JPEG, WebP, GIF or TIFF bytes to uint8 RGB in a buffer of
-// malloc's, which the caller frees with ssr_free. grey16: 0 the loader's high
-// byte, 1 PIL's clip.
+// The kind of image bytes as decode_bytes reads them (the Kind numbers).
+int ssr_image_kind(const uint8_t* data, size_t n) {
+  try {
+    return image_kind(data, n);
+  } catch (const std::exception&) {  // the claims tests do not throw; were one to, no kind
+    return kNone;
+  }
+}
+
+// Decode PNG, JPEG, WebP, GIF, TIFF, PCX, DCX, DDS, QOI, SGI or TGA bytes to
+// uint8 RGB in a buffer of malloc's, which the caller frees with ssr_free.
+// grey16: 0 the loader's high byte, 1 PIL's clip.
 // Returns 0, or 1 with the reason in ssr_last_error.
 int ssr_decode_image(const uint8_t* data, size_t n, int grey16, int* h, int* w,
                      uint8_t** out) {

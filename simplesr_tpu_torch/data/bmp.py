@@ -12,10 +12,12 @@ PIL accepts, and RLE8 and RLE4 as PIL's ``BmpRleDecoder`` reads them
 an even file offset, pixels it skips left at palette index 0). PIL 12.1's
 delta escape reads four bytes and moves by the last two; an odd absolute
 RLE4 run gives one pixel fewer than its count; both are read as PIL reads
-them. JPEG, PNG and ALPHABITFIELDS compressions raise ``ValueError`` naming
-the roadmap item; so does a file that PIL refuses or that ends early
-(PIL also refuses an RLE bitmap that ends before its last pixel). Host work
-only.
+them. JPEG, PNG and ALPHABITFIELDS compressions raise ``ValueError``, as
+PIL 12.1 refuses them too ("Unsupported BMP compression"); so does a file
+that PIL refuses or that ends early (PIL also refuses an RLE bitmap that
+ends before its last pixel). ``decode_dib`` reads the same bitmaps from a
+header anywhere in a buffer, as the ICO and CUR frames hold them
+(``data/ico.py``). Host work only.
 """
 
 import numpy as np
@@ -135,14 +137,41 @@ def decode_bmp(data, name="image"):
     data = bytes(data)
     if data[:2] != BMP_MAGIC or len(data) < 18:
         raise ValueError(f"{name}: not a BMP file")
-    offset = _u32(data, 10)
-    header_size = _u32(data, 14)
+    return decode_dib(data, 14, _u32(data, 10), name)
+
+
+def dib_pixel_offset(data, at):
+    """Where the pixels of the DIB whose header starts at ``at`` begin when
+    no offset says: after the header, a 40-byte header's bitfield masks and
+    the palette, where PIL's reading goes on. The header must be whole."""
+    header_size = _u32(data, at)
+    bits = _u16(data, at + (10 if header_size == 12 else 14))
+    pos = at + header_size
+    if header_size == 40 and _u32(data, at + 16) == _BITFIELDS:
+        pos += 12
+    if bits > 8:
+        return pos
+    if header_size == 12:
+        return pos + 3 * (1 << bits)
+    return pos + 4 * (_u32(data, at + 32) or (1 << bits))
+
+
+def decode_dib(data, at, offset, name="image", halve=False, check_halved=False):
+    """The bitmap whose header (its size first) starts at ``at`` in ``data``
+    -> uint8 RGB, as PIL's ``BmpImageFile._bitmap`` reads it. ``offset`` is
+    the pixels' offset in ``data``, or 0 for right after the header and the
+    palette. ``halve`` keeps the first half of the rows (an icon's or a
+    cursor's XOR bitmap, its AND mask after them); the bomb check takes the
+    halved size with ``check_halved`` (a cursor's), else the whole (an
+    icon's DIB)."""
+    data = bytes(data)
+    header_size = _u32(data, at)
     if header_size not in _HEADER_SIZES:
         raise ValueError(f"{name}: unsupported BMP header size {header_size}")
-    head = data[18:14 + header_size]
+    head = data[at + 4:at + header_size]
     if len(head) != header_size - 4:
         raise ValueError(f"{name}: truncated BMP header")
-    pos = 14 + header_size
+    pos = at + header_size
     if header_size == 12:
         width, height, bits = _u16(head, 0), _u16(head, 2), _u16(head, 6)
         compression, colors, entry, top_down = _RAW, 0, 3, False
@@ -155,7 +184,7 @@ def decode_bmp(data, name="image"):
     rle = compression in (_RLE8, _RLE4)
     if compression in _COMPRESSION_NAMES and not rle:
         raise ValueError(f"{name}: BMP {_COMPRESSION_NAMES[compression]} compression is not "
-                         f"supported ({UNSUPPORTED_ITEM})")
+                         f"supported: PIL refuses it too ({UNSUPPORTED_ITEM})")
     if compression not in (_RAW, _BITFIELDS) and not rle:
         raise ValueError(f"{name}: unsupported BMP compression {compression}")
     if rle and bits not in (4, 8):
@@ -163,9 +192,11 @@ def decode_bmp(data, name="image"):
                          f"{bits}-bit pixels is not supported ({UNSUPPORTED_ITEM})")
     if bits not in (1, 4, 8, 16, 24, 32):
         raise ValueError(f"{name}: unsupported BMP pixel depth {bits}")
-    if width <= 0 or height <= 0:
-        raise ValueError(f"{name}: bad BMP size {width} x {height}")
-    _check_pixels(name, width, height)
+    rows = height // 2 if halve else height
+    if width <= 0 or rows <= 0:
+        raise ValueError(f"{name}: bad BMP size {width} x {rows}")
+    _check_pixels(name, width, rows if check_halved else height)
+    height = rows
 
     masks = None
     if compression == _BITFIELDS:
@@ -183,8 +214,9 @@ def decode_bmp(data, name="image"):
     elif bits == 16:
         masks = (0x7C00, 0x3E0, 0x1F, 0)
     colors = colors or (1 << bits)
-    if offset == pos and bits <= 8:
+    if offset == at + header_size and bits <= 8:
         offset += 4 * colors  # PIL's reading of a pixel offset that forgot the palette
+    offset = offset or dib_pixel_offset(data, at)
 
     if rle:
         idx = _rle_indices(data, offset, width, height, compression == _RLE4, name)

@@ -3,8 +3,9 @@ as simplesr_tpu.data.native_loader binds the JAX package's.
 
 The library is built at first use with ``g++`` (``$CXX``, else ``g++`` on
 ``PATH``) from ``loader.cpp``, the JPEG encoder ``jpeg_encode.cpp`` and the
-WebP, GIF and TIFF decoders (``webp.cpp``, ``gif.cpp``, ``tiff.cpp``, with
-their header ``formats.h``), and linked against zlib; nothing of CUDA or
+decoders of the other formats (``webp.cpp``, ``gif.cpp``, ``tiff.cpp``,
+``dds.cpp``, ``tga.cpp``, ``qoi.cpp``, ``pcx.cpp``, ``sgi.cpp``, with their
+header ``formats.h``), and linked against zlib; nothing of CUDA or
 PyTorch is compiled. Each source compiles in a process of its own, all at
 once, before one link. It lives under the git-ignored
 ``simplesr_tpu_torch/_build/``, named by a hash of every source and header,
@@ -24,8 +25,8 @@ decodes 16-bit grey as the JAX loader does (the high byte). A file the
 decoders refuse raises ``ImageDecodeError``, both the ``OSError`` of the JAX
 class and a ``ValueError``, with the decoder's reason (which names the
 format); a missing file raises ``FileNotFoundError``. The library reads
-PNG, JPEG, WebP, GIF and TIFF; BMP and netpbm decode in numpy
-(``data/image.py``). ``decode_bytes`` decodes bytes in memory, as the
+PNG, JPEG, WebP, GIF, TIFF, DDS, TGA, QOI, PCX, DCX and SGI; BMP, netpbm,
+ICO and CUR decode in numpy (``data/image.py``). ``decode_bytes`` decodes bytes in memory, as the
 serving daemon and gateway take them.
 
 ``encode_jpeg`` writes the bytes that Pillow 12.1 over libjpeg-turbo 3.1.3
@@ -51,7 +52,8 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 _HOST = _PACKAGE / "csrc" / "host"
 SOURCE = _HOST / "loader.cpp"
 ENCODER_SOURCE = _HOST / "jpeg_encode.cpp"
-SOURCES = (SOURCE, ENCODER_SOURCE, _HOST / "webp.cpp", _HOST / "gif.cpp", _HOST / "tiff.cpp")
+SOURCES = (SOURCE, ENCODER_SOURCE) + tuple(
+    _HOST / f"{name}.cpp" for name in ("webp", "gif", "tiff", "dds", "tga", "qoi", "pcx", "sgi"))
 HEADERS = (_HOST / "formats.h",)
 BUILD_DIR = _PACKAGE / "_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
@@ -153,6 +155,7 @@ def _bind(lib):
         "ssr_last_error": (ctypes.c_char_p, []),
         "ssr_decode_image": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
                                             _intp, _intp, ctypes.POINTER(_u8p)]),
+        "ssr_image_kind": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t]),
         "ssr_free": (None, [_u8p]),
         "ssr_encode_jpeg": (ctypes.c_int, [_u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(_u8p),
@@ -181,9 +184,22 @@ def _last_error(lib):
     return lib.ssr_last_error().decode("utf-8", "replace")
 
 
+# ssr_image_kind's numbers (loader.cpp's Kind)
+NATIVE_KINDS = (None, "png", "jpeg", "webp", "gif", "tiff", "pcx", "dcx", "dds", "qoi", "sgi",
+                "tga")
+
+
+def native_kind(data):
+    """The kind the library reads ``data`` as, in PIL's order of plugins
+    (TGA, which has no magic, last), or None."""
+    data = bytes(data)
+    return NATIVE_KINDS[library().ssr_image_kind(data, len(data))]
+
+
 def decode_bytes(data, name="image", grey16="pil"):
-    """PNG, JPEG, WebP, GIF or TIFF bytes -> uint8 RGB (H, W, 3). A body the
-    decoders refuse raises ``ValueError`` naming ``name`` and the reason."""
+    """PNG, JPEG, WebP, GIF, TIFF, PCX, DCX, DDS, QOI, SGI or TGA bytes ->
+    uint8 RGB (H, W, 3). A body the decoders refuse raises ``ValueError``
+    naming ``name`` and the reason."""
     lib = library()
     h, w, out = ctypes.c_int(), ctypes.c_int(), _u8p()
     data = bytes(data)

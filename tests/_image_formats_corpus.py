@@ -1,14 +1,15 @@
 """Writes data/corpus/image_formats/ and its MANIFEST.json: the WebP, GIF,
 TIFF, netpbm and RLE BMP fixtures that the port's decoders are held to, and
 the JPEG processes beside baseline (arithmetic coding, lossless, block
-smoothing).
+smoothing); and data/corpus/texture_formats/ and its MANIFEST.json: the
+DDS, TGA, ICO, CUR, QOI, PCX, DCX and SGI fixtures.
 
     python tests/_image_formats_corpus.py
 
 Each file is a crop of data/corpus/gallery/gt_1.png (or samples drawn from
 a numpy seed) written by Pillow or by a writer under tests/ (_webp_writer,
-_gif_writer, _tiff_writer, _bmp_writer, _jpeg_writer; netpbm is written
-here). The
+_gif_writer, _tiff_writer, _bmp_writer, _jpeg_writer, _dds_writer,
+_tga_writer, _ico_writer, _sgi_writer; netpbm is written here). The
 manifest holds each file's writer and parameters, its shape and the SHA-256
 of Pillow's ``np.asarray(Image.open(f).convert("RGB"))`` bytes; entries with
 ``refused`` are files the port refuses by name. Regenerate only with the
@@ -30,18 +31,26 @@ from PIL import Image
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _bmp_writer import rle_encode, write_bmp_rle  # noqa: E402
+from _dds_writer import (DDPF_ALPHAPIXELS, DDPF_PALETTE8, DDPF_RGB,  # noqa: E402
+                         block_count, encode_bc7_mode6, random_blocks, write_dds)
 from _gif_writer import write_gif  # noqa: E402
+from _ico_writer import dib, pcx_planar, write_dcx, write_icon  # noqa: E402
 from _jpeg_writer import (drop_scans, write_jpeg, write_jpeg_arith,  # noqa: E402
                           write_jpeg_lossless)
+from _sgi_writer import write_sgi  # noqa: E402
+from _tga_writer import write_tga  # noqa: E402
 from _tiff_writer import jpeg_chunks, write_tiff  # noqa: E402
 from _webp_writer import write_webp  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "data/corpus/image_formats"
+TEXTURES = ROOT / "data/corpus/texture_formats"
 SOURCE = "data/corpus/gallery/gt_1.png"
 GALLERY = np.asarray(Image.open(ROOT / SOURCE).convert("RGB"))
 KINDS = {".webp": "webp", ".gif": "gif", ".tif": "tiff", ".pbm": "pnm", ".pgm": "pnm",
-         ".ppm": "pnm", ".bmp": "bmp", ".jpg": "jpeg"}
+         ".ppm": "pnm", ".bmp": "bmp", ".jpg": "jpeg", ".dds": "dds", ".tga": "tga",
+         ".ico": "ico", ".cur": "cur", ".qoi": "qoi", ".pcx": "pcx", ".dcx": "dcx",
+         ".sgi": "sgi"}
 # the progressive scan script of libjpeg's jpeg_simple_progression for YCbCr
 # (components, Ss, Se, Ah, Al), as Pillow writes it
 SIMPLE_PROGRESSION = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
@@ -519,36 +528,253 @@ def fixtures():
         write_bmp_rle(128, 96, qpal, rle_encode(q))
 
 
-def main():
-    OUT.mkdir(parents=True, exist_ok=True)
+def bc_modes(rng, count, modes, size=16):
+    """``count`` seeded blocks a mode, the modes in turn."""
+    per = [random_blocks(rng, count, size, m) for m in modes]
+    return b"".join(p[i * size:(i + 1) * size] for i in range(count) for p in per)
+
+
+def texture_fixtures(rng):
+    """The DDS, TGA, ICO, CUR, QOI, PCX, DCX and SGI fixtures, as ``fixtures``
+    yields them."""
+    small, tiny = crop(40, 60, 17, 33), crop(200, 100, 13, 17)
+    tile = crop(100, 200, 96, 128)
+    c = {"crop": [40, 60, 17, 33]}
+    ct = {"crop": [200, 100, 13, 17]}
+    # DDS: Pillow's encoders, then the writer's headers over seeded blocks
+    for fmt, img in (("DXT1", Image.fromarray(small)), ("DXT3", rgba(small, 3)),
+                     ("DXT5", rgba(small, 5)), ("BC5", Image.fromarray(small))):
+        yield f"dds_{fmt.lower()}_pil_17x33.dds", "PIL", dict(c, pixel_format=fmt), \
+            pil_save(img, "DDS", pixel_format=fmt)
+    raw = random_blocks(rng, 64, 8)
+    punch = np.frombuffer(raw, np.uint8).reshape(64, 8).copy()
+    lo, hi = punch[:, 0:2].copy(), punch[:, 2:4].copy()
+    swap = lo.view("<u2")[:, 0] > hi.view("<u2")[:, 0]
+    punch[swap, 0:2], punch[swap, 2:4] = hi[swap], lo[swap]  # colour 0 <= colour 1
+    yield "dds_dxt1_three_colour_32x32.dds", "tests/_dds_writer.py", \
+        {"seed": 2026, "fourcc": "DXT1", "blocks": "c0 <= c1: three colours and black"}, \
+        write_dds(32, 32, punch.tobytes(), fourcc="DXT1")
+    for name, kw, size in (("ati1", dict(fourcc="ATI1"), 8), ("bc4u", dict(fourcc="BC4U"), 8),
+                           ("bc4_dx10", dict(dxgi="BC4"), 8), ("ati2", dict(fourcc="ATI2"), 16),
+                           ("bc5s", dict(fourcc="BC5S"), 16),
+                           ("bc5_snorm_dx10", dict(dxgi="BC5_SNORM"), 16),
+                           ("bc1_dx10", dict(dxgi="BC1"), 8), ("bc2_dx10", dict(dxgi="BC2"), 16),
+                           ("bc3_dx10", dict(dxgi="BC3"), 16)):
+        yield f"dds_{name}_random_19x13.dds", "tests/_dds_writer.py", \
+            dict(kw, seed=2026, blocks="random"), \
+            write_dds(19, 13, random_blocks(rng, block_count(19, 13), size), **kw)
+    bc6 = [("bc6", b) for b in (0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15, 19, 23, 27,
+                                31)]
+    for fmt in ("BC6H_UF16", "BC6H_SF16"):
+        yield f"dds_{fmt.lower()}_modes_36x32.dds", "tests/_dds_writer.py", \
+            {"seed": 2026, "dxgi": fmt, "blocks": "4 random blocks of each of the 18 mode codes"}, \
+            write_dds(36, 32, bc_modes(rng, 4, bc6), dxgi=fmt)
+    modes = list(range(8))
+    yield "dds_bc7_modes_32x18.dds", "tests/_dds_writer.py", \
+        {"seed": 2026, "dxgi": "BC7", "blocks": "5 random blocks of each mode, then empty ones"}, \
+        write_dds(32, 18, bc_modes(rng, 5, modes) + bytes(16 * 5), dxgi="BC7")
+    padded = np.pad(small, ((0, 3), (0, 3), (0, 0)), mode="edge")
+    yield "dds_bc7_mode6_17x33.dds", "tests/_dds_writer.py", \
+        dict(c, dxgi="BC7_SRGB", encoder="mode 6, channel range endpoints"), \
+        write_dds(33, 17, encode_bc7_mode6(padded), dxgi="BC7_SRGB")
+    for mode in ("RGB", "RGBA", "L", "LA"):
+        yield f"dds_{mode.lower()}_pil_13x17.dds", "PIL", dict(ct, mode=mode), \
+            pil_save(Image.fromarray(tiny).convert(mode), "DDS")
+    t16 = tiny.astype(np.int64)
+    r565 = ((t16[:, :, 0] >> 3) << 11) | ((t16[:, :, 1] >> 2) << 5) | (t16[:, :, 2] >> 3)
+    yield "dds_r5g6b5_13x17.dds", "tests/_dds_writer.py", dict(ct, masks="F800 07E0 001F"), \
+        write_dds(17, 13, r565.astype("<u2").tobytes(), pfflags=DDPF_RGB, bitcount=16,
+                  masks=(0xF800, 0x7E0, 0x1F, 0))
+    odd = rng.integers(0, 1 << 24, (13, 17)).astype("<u4")
+    yield "dds_odd_masks_13x17.dds", "tests/_dds_writer.py", \
+        {"seed": 2026, "bitcount": 24, "masks": "0x3 << 3, 0x3F0 << 6, 0x5, alpha 0xC00000",
+         "truncated_by": 7}, \
+        write_dds(17, 13, b"".join(int(v).to_bytes(3, "little") for v in odd.ravel())[:-7],
+            pfflags=DDPF_RGB | DDPF_ALPHAPIXELS, bitcount=24,
+            masks=(0x3 << 3, 0x3F0 << 6, 0x5, 0xC00000))
+    palette = rng.integers(0, 256, 1024, dtype=np.uint8)
+    yield "dds_palette8_13x17.dds", "tests/_dds_writer.py", {"seed": 2026, "palette": "RGBA"}, \
+        write_dds(17, 13, rng.integers(0, 256, 13 * 17, dtype=np.uint8).tobytes(),
+                  pfflags=DDPF_PALETTE8, bitcount=8, palette=palette)
+    yield "dds_r8g8b8a8_dx10_13x17.dds", "tests/_dds_writer.py", dict(ct, dxgi="R8G8B8A8"), \
+        write_dds(17, 13, np.asarray(rgba(tiny, 7)).tobytes(), dxgi="R8G8B8A8")
+    yield "dds_bc1_srgb_dxgi72_stub.dds", "tests/_dds_writer.py", {"dxgi": 72}, \
+        write_dds(4, 4, bytes(8), dxgi=72), "DXGI format 72"
+    yield "dds_dxt2_stub.dds", "tests/_dds_writer.py", {"fourcc": "DXT2"}, \
+        write_dds(4, 4, bytes(16), fourcc="DXT2"), "pixel format 'DXT2'"
+
+    # TGA: each image type, depth, origin and colour map
+    yield "tga_rgb_pil_13x17.tga", "PIL", ct, pil_save(Image.fromarray(tiny), "TGA")
+    yield "tga_rgba_pil_13x17.tga", "PIL", dict(ct, mode="RGBA"), pil_save(rgba(tiny, 9), "TGA")
+    yield "tga_l_pil_13x17.tga", "PIL", dict(ct, mode="L"), \
+        pil_save(Image.fromarray(tiny).convert("L"), "TGA")
+    yield "tga_la_pil_13x17.tga", "PIL", dict(ct, mode="LA"), \
+        pil_save(Image.fromarray(tiny).convert("LA"), "TGA")
+    yield "tga_rle_pil_17x33.tga", "PIL", dict(c, compression="tga_rle"), \
+        pil_save(Image.fromarray(small), "TGA", compression="tga_rle")
+    yield "tga_p_rle_pil_13x17.tga", "PIL", dict(ct, mode="P", compression="tga_rle"), \
+        pil_save(Image.fromarray(tiny).quantize(16), "TGA", compression="tga_rle")
+    words = ((t16[:, :, 0] >> 3) << 10) | ((t16[:, :, 1] >> 3) << 5) | (t16[:, :, 2] >> 3)
+    yield "tga_type2_16bit_top_right_13x17.tga", "tests/_tga_writer.py", \
+        dict(ct, depth=16, origin="top_right"), write_tga(words | 0x8000, 2, 16, "top_right")
+    yield "tga_type10_32bit_rle_top_left_13x17.tga", "tests/_tga_writer.py", \
+        dict(ct, depth=32, origin="top_left", rle="random packet cuts"), \
+        write_tga(np.asarray(rgba(tiny, 4)), 10, 32, "top_left", rle_rng=rng)
+    idx = (tiny[:, :, 0] // 32).astype(np.int64)
+    cmap = rng.integers(0, 256, (8, 3))
+    yield "tga_type1_map_start_bottom_right_13x17.tga", "tests/_tga_writer.py", \
+        dict(ct, map_start=3, map_entries=8, indices="red // 32 + 0..2, some past the map"), \
+        write_tga(idx + (idx % 3), 1, 8, "bottom_right", cmap, map_start=3, image_id=b"ssr")
+    yield "tga_type9_map16_rle_13x17.tga", "tests/_tga_writer.py", \
+        dict(ct, map_depth=16, rle=True), \
+        write_tga(idx, 9, 8, "bottom_left", rng.integers(0, 65536, 8), map_depth=16,
+                  rle_rng=rng)
+    yield "tga_type3_1bit_13x17.tga", "tests/_tga_writer.py", dict(ct, depth=1, threshold=128), \
+        write_tga(tiny[:, :, 1] > 128, 3, 1, "top_left")
+    yield "tga_type11_grey_map_rle_13x17.tga", "tests/_tga_writer.py", \
+        dict(ct, depth=8, colour_map="a grey image read through its map, as PIL does"), \
+        write_tga(idx, 11, 8, "bottom_left", cmap, rle_rng=rng)
+    rows = b"".join(bytes(r) for r in tiny[::-1, :, ::-1].reshape(13, -1))
+    raw = b"".join(bytes([len(rows[i:i + 384]) // 3 - 1]) + rows[i:i + 384]
+                   for i in range(0, len(rows), 384))
+    yield "tga_type10_raw_packets_across_rows_13x17.tga", "tests/_tga_writer.py", \
+        dict(ct, rle="raw packets of 128 pixels, across rows"), \
+        write_tga(tiny, 10, 24, rows_raw=raw)
+    yield "tga_type11_1bit_rle_stub.tga", "tests/_tga_writer.py", {"depth": 1, "rle": True}, \
+        write_tga(np.zeros((2, 8), np.uint8), 11, 1, rows_raw=bytes([0x81, 0])), "1-bit"
+
+    # ICO and CUR
+    yield "ico_png_pil_17x33.ico", "PIL", dict(c, sizes=[[16, 16], [33, 17]]), \
+        pil_save(Image.fromarray(small), "ICO", sizes=[(16, 16), (33, 17)])
+    yield "ico_bmp_pil_17x33.ico", "PIL", dict(c, sizes=[[33, 17]], bitmap_format="bmp"), \
+        pil_save(Image.fromarray(small), "ICO", sizes=[(33, 17)], bitmap_format="bmp")
+    pal = rng.integers(0, 256, (256, 3))
+    frames = [(16, 16, 1, 2, dib(rng.integers(0, 2, (16, 16)), 1, pal[:2])),
+              (24, 24, 4, 16, dib(rng.integers(0, 16, (24, 24)), 4, pal[:16])),
+              (24, 24, 8, 0, dib(crop(0, 0, 24, 24)[:, :, 0] // 2, 8, pal)),
+              (24, 24, 24, 0, dib(crop(0, 0, 24, 24), 24)),
+              (20, 12, 32, 0, dib(np.asarray(rgba(crop(0, 0, 12, 20), 2)), 32))]
+    yield "ico_dib_depths_24x24.ico", "tests/_ico_writer.py", \
+        {"seed": 2026, "frames": "1-bit 16x16, 4-bit 24x24, 8-bit 24x24, 24-bit 24x24, 32-bit "
+                                 "20x12: PIL reads the 4-bit 24x24"}, write_icon(frames)
+    yield "ico_dib_8bit_first_24x24.ico", "tests/_ico_writer.py", \
+        {"seed": 2026, "frames": "the 8-bit and 24-bit 24x24 frames"}, write_icon(frames[2:4])
+    yield "ico_dib_1bit_16x16.ico", "tests/_ico_writer.py", {"seed": 2026, "bits": 1}, \
+        write_icon(frames[:1])
+    cur = [(16, 16, 0, 0, dib(crop(0, 0, 16, 16), 24)),
+           (24, 20, 0, 0, dib(crop(30, 30, 20, 24)[:, :, 1] // 2, 8, pal)),
+           (20, 30, 0, 0, dib(crop(30, 30, 30, 20), 24))]
+    yield "cur_three_cursors_24x20.cur", "tests/_ico_writer.py", \
+        {"crop": [30, 30, 20, 24], "frames": "16x16, 24x20, 20x30: PIL reads 24x20"}, \
+        write_icon(cur, kind=2)
+
+    # QOI, PCX, DCX, SGI
+    yield "qoi_rgb_pil_17x33.qoi", "PIL", c, pil_save(Image.fromarray(small), "QOI")
+    yield "qoi_rgba_pil_17x33.qoi", "PIL", dict(c, alpha_seed=6), pil_save(rgba(small, 6), "QOI")
+    for mode in ("1", "L", "P", "RGB"):
+        img = Image.fromarray(tiny).convert(mode) if mode != "P" else \
+            Image.fromarray(tiny).quantize(32)
+        yield f"pcx_{mode.lower()}_pil_13x17.pcx", "PIL", dict(ct, mode=mode), pil_save(img, "PCX")
+    yield "pcx_rgb_width1_pil_13x1.pcx", "PIL", \
+        {"crop": [200, 100, 13, 1], "quirk": "PIL writes lines its reader finds short"}, \
+        pil_save(Image.fromarray(crop(200, 100, 13, 1)), "PCX"), "truncated"
+    for planes in (2, 4):
+        yield f"pcx_planar{planes}_13x17.pcx", "tests/_ico_writer.py", \
+            {"seed": 2026, "planes": planes}, \
+            pcx_planar(rng.integers(0, 1 << planes, (13, 17)), planes,
+                       rng.integers(0, 256, (16, 3)))
+    yield "dcx_two_pages_13x17.dcx", "tests/_ico_writer.py", \
+        dict(ct, pages=["RGB", "P, whose palette ends the file"]), \
+        write_dcx([pil_save(Image.fromarray(tiny), "PCX"),
+                   pil_save(Image.fromarray(tiny).quantize(8), "PCX")])
+    yield "sgi_rgb_pil_13x17.sgi", "PIL", ct, pil_save(Image.fromarray(tiny), "SGI")
+    yield "sgi_l_pil_13x17.sgi", "PIL", dict(ct, mode="L"), \
+        pil_save(Image.fromarray(tiny).convert("L"), "SGI")
+    yield "sgi_rgba_16bit_pil_13x17.sgi", "PIL", dict(ct, mode="RGBA", bpc=2), \
+        pil_save(rgba(tiny, 8), "SGI", bpc=2)
+    yield "sgi_rgb_rle_17x33.sgi", "tests/_sgi_writer.py", dict(c, rle=True), \
+        write_sgi(small, 1, rle=True)
+    yield "sgi_rgba_rle_16bit_13x17.sgi", "tests/_sgi_writer.py", \
+        dict(ct, rle=True, bpc=2, samples="value * 257 + seeded low byte"), \
+        write_sgi(np.asarray(rgba(tiny, 5)).astype(np.int64) * 256 +
+                  rng.integers(0, 256, (13, 17, 4)), 2, rle=True)
+    yield "sgi_grey_dim1_rle_13x17.sgi", "tests/_sgi_writer.py", \
+        dict(ct, rle=True, dimension=1), write_sgi(tiny[:, :, 2], 1, rle=True, dimension=1)
+
+    t = {"crop": [100, 200, 96, 128], "timing": True}
+    timing = Image.fromarray(tile)
+    yield "timing_dds_bc1.dds", "PIL", dict(t, pixel_format="DXT1"), \
+        pil_save(timing, "DDS", pixel_format="DXT1")
+    yield "timing_dds_bc7.dds", "tests/_dds_writer.py", dict(t, dxgi="BC7", encoder="mode 6"), \
+        write_dds(128, 96, encode_bc7_mode6(tile), dxgi="BC7")
+    yield "timing_tga_rle.tga", "PIL", dict(t, compression="tga_rle"), \
+        pil_save(timing, "TGA", compression="tga_rle")
+    yield "timing_ico_png.ico", "PIL", dict(t, sizes=[[128, 96]]), \
+        pil_save(timing, "ICO", sizes=[(128, 96)])
+    q = timing.quantize(256)
+    qpal = np.asarray(q.getpalette()[:768]).reshape(-1, 3)
+    yield "timing_cur_dib8.cur", "tests/_ico_writer.py", dict(t, quantize=256, bits=8), \
+        write_icon([(128, 96, 0, 0, dib(np.asarray(q), 8, np.pad(qpal, ((0, 256 - len(qpal)),
+                                                                    (0, 0)))))], kind=2)
+    yield "timing_qoi.qoi", "PIL", dict(t), pil_save(timing, "QOI")
+    yield "timing_pcx_rgb.pcx", "PIL", dict(t), pil_save(timing, "PCX")
+    yield "timing_dcx_p.dcx", "tests/_ico_writer.py", dict(t, quantize=256), \
+        write_dcx([pil_save(q, "PCX")])
+    yield "timing_sgi_rle.sgi", "tests/_sgi_writer.py", dict(t, rle=True), \
+        write_sgi(tile, 1, rle=True)
+
+
+def write_corpus(out, items, purpose, one_line_entries=False):
+    out.mkdir(parents=True, exist_ok=True)
     entries = []
-    for item in fixtures():
+    for item in items:
         name, writer, params, data = item[:4]
-        (OUT / name).write_bytes(data)
-        entry = {"file": f"data/corpus/image_formats/{name}", "format": KINDS[Path(name).suffix],
+        (out / name).write_bytes(data)
+        entry = {"file": str((out / name).relative_to(ROOT)), "format": KINDS[Path(name).suffix],
                  "writer": writer, "params": params}
         if len(item) == 5:
             entry["refused"] = item[4]
         else:
-            rgb = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"), np.uint8)
+            try:
+                rgb = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"), np.uint8)
+            except Exception as e:
+                raise RuntimeError(f"PIL does not decode {name}") from e
             entry["shape"] = list(rgb.shape)
             entry["sha256_pil_rgb"] = hashlib.sha256(rgb.tobytes()).hexdigest()
         entries.append(entry)
     manifest = {
-        "purpose": "Fixtures of the formats the JAX package opens through PIL beside PNG and "
-                   "baseline JPEG: the port's WebP, GIF, TIFF, netpbm and RLE BMP decoders and "
-                   "its JPEG decoder's arithmetic, lossless and smoothing paths are held to "
-                   "PIL's convert('RGB') decode of each file (sha256_pil_rgb, of the uint8 HWC "
-                   "array's bytes); entries with 'refused' are variants the port refuses by "
-                   "name, as PIL refuses or misreads them.",
+        "purpose": purpose,
         "pil": PIL.__version__,
         "source": SOURCE,
         "recipe": "python tests/_image_formats_corpus.py",
         "files": entries,
     }
-    (OUT / "MANIFEST.json").write_text(json.dumps(manifest, indent=1) + "\n")
-    total = sum(p.stat().st_size for p in OUT.iterdir())
-    print(f"{len(entries)} files, {total} bytes")
+    text = json.dumps(manifest, indent=1)
+    if one_line_entries:  # the same JSON, an entry a line
+        lines = [json.dumps(e) for e in entries]
+        text = json.dumps({**manifest, "files": []}, indent=1).replace(
+            '"files": []', '"files": [\n  ' + ",\n  ".join(lines) + "\n ]")
+    (out / "MANIFEST.json").write_text(text + "\n")
+    total = sum(p.stat().st_size for p in out.iterdir())
+    print(f"{out.name}: {len(entries)} files, {total} bytes")
+
+
+def main():
+    write_corpus(
+        OUT, fixtures(),
+        "Fixtures of the formats the JAX package opens through PIL beside PNG and "
+        "baseline JPEG: the port's WebP, GIF, TIFF, netpbm and RLE BMP decoders and "
+        "its JPEG decoder's arithmetic, lossless and smoothing paths are held to "
+        "PIL's convert('RGB') decode of each file (sha256_pil_rgb, of the uint8 HWC "
+        "array's bytes); entries with 'refused' are variants the port refuses by "
+        "name, as PIL refuses or misreads them.")
+    write_corpus(
+        TEXTURES, texture_fixtures(np.random.default_rng(2026)),
+        "Fixtures of the texture and icon formats the JAX package opens through PIL: "
+        "the port's DDS (uncompressed and BC1-BC7), TGA, ICO, CUR, QOI, PCX, DCX and "
+        "SGI decoders are held to PIL's convert('RGB') decode of each file "
+        "(sha256_pil_rgb, of the uint8 HWC array's bytes); entries with 'refused' are "
+        "variants that PIL refuses too, refused by the port by name.", one_line_entries=True)
 
 
 if __name__ == "__main__":

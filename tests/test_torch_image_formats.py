@@ -27,7 +27,9 @@ import pytest
 from PIL import Image
 
 from _bmp_writer import rle_encode, write_bmp_rle
+from _dds_writer import write_dds
 from _gif_writer import write_gif
+from _ico_writer import write_dcx, write_icon
 from _tiff_writer import jpeg_chunks, write_tiff
 from _webp_writer import write_webp
 from simplesr_tpu.data.pipeline import _read_img_u8 as jax_read_img_u8
@@ -259,8 +261,12 @@ REFUSALS = {
 
 @pytest.mark.parametrize("what", REFUSALS)
 def test_refusals_name_the_variant_and_the_roadmap(what):
+    data = REFUSALS[what]()
     with pytest.raises(ValueError, match=f"{what}.*ROADMAP.md, Queue 1, item 3"):
-        decode_image(REFUSALS[what]())
+        decode_image(data)
+    if what.startswith("BMP"):  # PIL 12.1 refuses these compressions too
+        with pytest.raises(OSError, match="Unsupported BMP compression"):
+            _pil(data)
 
 
 def _jpeg_tiff():
@@ -298,7 +304,12 @@ def test_cielab_sweep_decodes_as_pils_littlecms_transform():
     np.testing.assert_array_equal(decode_image(data), _pil(data))
 
 
-@pytest.mark.parametrize("fmt", ["webp", "gif", "tiff", "pnm"])
+def _dib_header(width, height):
+    return struct.pack("<IiiHHIIiiII", 40, width, height, 1, 24, 0, 0, 0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("fmt", ["webp", "gif", "tiff", "pnm", "dds", "tga", "qoi", "pcx", "dcx",
+                                 "sgi", "ico", "cur"])
 def test_bombs_are_refused_before_decoding(fmt):
     """Headers past twice PIL's MAX_IMAGE_PIXELS, as PIL refuses them."""
     if fmt == "webp":  # a 16384 x 16384 lossless header
@@ -313,8 +324,25 @@ def test_bombs_are_refused_before_decoding(fmt):
         for tag in (256, 257):  # width and length
             data = bytes(data).replace(struct.pack("<HHII", tag, 4, 1, 2),
                                        struct.pack("<HHII", tag, 4, 1, 60000))
-    else:
+    elif fmt == "pnm":
         data = b"P6 60000 60000 255\n" + bytes(16)
+    elif fmt == "dds":
+        data = write_dds(60000, 60000, bytes(64), fourcc="DXT1")
+    elif fmt == "tga":  # 65535 x 65535, the largest a TGA header holds
+        data = struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, 65535, 65535, 24, 0) + \
+            bytes(64)
+    elif fmt == "qoi":
+        data = b"qoif" + struct.pack(">II", 60000, 60000) + b"\3\0" + bytes(64)
+    elif fmt in ("pcx", "dcx"):
+        data = b"\x0a\x05\x01\x08" + struct.pack("<6H", 0, 0, 59999, 59999, 72, 72) + \
+            bytes(49) + b"\x01" + struct.pack("<HH", 60000, 1) + bytes(958)
+        if fmt == "dcx":
+            data = write_dcx([data])
+    elif fmt == "sgi":
+        data = struct.pack(">HBBHHHH", 474, 0, 1, 3, 60000, 60000, 3) + bytes(600)
+    else:  # an icon's or a cursor's DIB, its height doubled
+        data = write_icon([(0, 0, 24, 0, _dib_header(60000, 120000) + bytes(64))],
+                          kind=1 if fmt == "ico" else 2)
     with pytest.raises(ValueError, match="exceeds the limit"):
         decode_image(data)
 
@@ -413,6 +441,15 @@ SWEEP_SOURCES = ["webp_lossy_q50_17x33.webp", "webp_lossy_alpha_17x33.webp",
                  "jpeg_smooth_unrefined_48x64.jpg", "tiff_jpeg_compression.tif",
                  "tiff_ycbcr22_lzw_37x45.tif", "tiff_cmyk16_deflate_p2_37x45.tif",
                  "tiff_float32.tif", "tiff_bigtiff_lzw_37x45.tif"]
+# the texture and icon formats (data/corpus/texture_formats)
+TEXTURE_SWEEP_SOURCES = ["dds_bc7_mode6_17x33.dds", "dds_bc6h_sf16_modes_36x32.dds",
+                         "dds_odd_masks_13x17.dds", "dds_palette8_13x17.dds",
+                         "tga_rle_pil_17x33.tga", "tga_type1_map_start_bottom_right_13x17.tga",
+                         "ico_dib_depths_24x24.ico", "ico_png_pil_17x33.ico",
+                         "cur_three_cursors_24x20.cur", "qoi_rgba_pil_17x33.qoi",
+                         "pcx_rgb_pil_13x17.pcx", "pcx_planar4_13x17.pcx",
+                         "dcx_two_pages_13x17.dcx", "sgi_rgba_rle_16bit_13x17.sgi",
+                         "sgi_rgb_pil_13x17.sgi"]
 
 
 def _variants(data, rng, truncations=8, flips=24):
@@ -430,8 +467,10 @@ def _variants(data, rng, truncations=8, flips=24):
 def test_damaged_inputs_are_refused_or_decode_as_pil(tmp_path):
     rng = np.random.default_rng(2026)
     cases = []
-    for name in SWEEP_SOURCES:
-        data = (ROOT / "data/corpus/image_formats" / name).read_bytes()
+    sources = [("image_formats", n) for n in SWEEP_SOURCES] + \
+        [("texture_formats", n) for n in TEXTURE_SWEEP_SOURCES]
+    for corpus, name in sources:
+        data = (ROOT / "data/corpus" / corpus / name).read_bytes()
         for k, variant in enumerate(_variants(data, rng)):
             path = tmp_path / f"{name}_{k}"
             path.write_bytes(variant)
@@ -448,5 +487,6 @@ def test_damaged_inputs_are_refused_or_decode_as_pil(tmp_path):
             kind = "as PIL"
         tally[fmt, kind] = tally.get((fmt, kind), 0) + 1
     # the sweep reached both outcomes for every format
-    for fmt in ("webp", "gif", "tiff", "ppm", "bmp", "jpeg"):
+    for fmt in ("webp", "gif", "tiff", "ppm", "bmp", "jpeg", "dds", "tga", "ico", "cur", "qoi",
+                "pcx", "dcx", "sgi"):
         assert tally.get((fmt, "refused")) and tally.get((fmt, "as PIL")), (fmt, tally)

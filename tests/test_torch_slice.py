@@ -327,8 +327,10 @@ IMAGE_INPUT_MODULES = ["data/image.py", "data/native_loader.py", "data/png.py",
 # the quality tooling and the BMP decoder it reads
 QUALITY_MODULES = ["tools/quality_campaign.py", "tools/quality_check.py", "tools/gan_smoke.py",
                    "tools/standard_benchmarks.py", "data/bmp.py"]
-# the image formats PIL opens beside PNG and JPEG: netpbm (the others are C++)
-IMAGE_FORMAT_MODULES = ["data/pnm.py", "data/image.py", "data/bmp.py", "data/pipeline.py"]
+# the image formats PIL opens beside PNG and JPEG: netpbm, ICO and CUR (the
+# others are C++)
+IMAGE_FORMAT_MODULES = ["data/pnm.py", "data/image.py", "data/bmp.py", "data/pipeline.py",
+                        "data/ico.py"]
 # the denoising path: the JPEG-noise campaign, the two studies and the
 # encoder's binding
 DENOISING_MODULES = ["tools/jpg_noise_campaign.py", "tools/ensemble_study.py",
