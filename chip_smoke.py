@@ -313,7 +313,22 @@ plain PyTorch version, in one process, with no arguments:
      and edges where the flagship's receptive field passes the route's
      overlap (LARGE_*_BAND) it equals the untiled upscale of the same
      decoded array within ROUTE_*_TOL; the bands' differences are
-     printed.
+     printed;
+ 19. the measurement and study tools (``simplesr_tpu_torch/tools``) at cut
+     sizes, each with the launch counts set to 0 just before and read just
+     after: ``bench_trunk_kernel`` (kernel, cuDNN and plain trunk at batch 4
+     x 64^2, 16 blocks), the SRResNet and RRDB tail forms of
+     ``bench_upsample_tail`` and ``bench_rrdb_tail`` (each held to the
+     model's own tail on the card within POLY_*_TOL, then timed at batch 2
+     x 64^2), ``remat_study`` (SRResNet 16 with BatchNorm and RRDB 8 at
+     batch 4 x 96^2: remat must lower the step's peak memory and the bytes
+     saved for the backward; untimed), ``train_roofline --fast``,
+     ``bf16_grad_study`` (3 timed steps, a 1-epoch x2 run on 64 crops),
+     ``host_assembly_profile`` (8 crops a tile) and ``bench_serve`` on the
+     flagship (1 s a stage, 4 engine clients, 2 daemon clients, 64 x 64
+     requests, batches of up to 4; no request may fail); every row
+     finite and with its keys, and the tools whose path runs the trunk
+     kernel launched it.
 
 Torch's global TF32 flags are left as they are: the model sets the precision
 of its one float32 conv itself (``core.dtypes.OUTPUT_CONV_TF32``).
@@ -347,6 +362,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from simplesr_tpu_torch.tools import bench_serve
+from simplesr_tpu_torch.tools.bench_timing import (PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, TIMING_RUNS,
+                                                   alternating_ms, cuda_ms, graph_ms)
+from simplesr_tpu_torch.tools.bench_trunk_kernel import library_trunk, library_trunk_weights
+from simplesr_tpu_torch.tools.bench_upsample_tail import tail_stage_ms
+
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP = ROOT / "results/quality_fastrecipe/models/resnet_gen_srresnet_x4_best.msgpack"
 GALLERY_PNG = ROOT / "data/corpus/gallery/gt_3.png"
@@ -357,12 +378,7 @@ TRUNK_SHAPE = (8, 192, 192)  # the trunk's input on the tiled route: batch 8 of 
 TRUNK_EDGE_SHAPES = ((1, 1, 1), (2, 13, 37), (3, 200, 260))
 CROP_HW = (96, 128)       # the engine's second request shape
 SEED = 0
-TIMING_RUNS = 25
 WATCHDOG_S = 1100
-
-# H100 SXM data-sheet peaks (dense), for the bounds.
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
 
 # Trunk kernel vs plain version, max |diff| / max |plain|, each residual block
 # on the same input: bf16 storage, f32 sums in another order.
@@ -494,42 +510,6 @@ def start(phase):
     print(f"--- phase {phase} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
-def cuda_ms(fn, runs=TIMING_RUNS, warmup=3):
-    """Median time of ``fn`` in ms over ``runs`` runs, each between two CUDA
-    events, after ``warmup`` runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        begin = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        begin.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(begin.elapsed_time(end))
-    return statistics.median(times)
-
-
-def graph_ms(fn, calls, replays=10):
-    """Device time of one ``fn()`` in ms: ``calls`` calls captured in one
-    CUDA graph and replayed between two CUDA events (median of
-    ``replays``). A single call of a kernel that runs for tens of
-    microseconds is timed by the host's launch path instead."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm up off the capture, as CUDA graphs need
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return cuda_ms(graph.replay, runs=replays, warmup=1) / calls
-
-
 @contextlib.contextmanager
 def plain_kernels():
     """Run the serving route with the kernels' plain versions in place of the
@@ -608,25 +588,6 @@ def stage_ms(model, lr_nhwc):
         if name == "head":
             skip = h
     return times
-
-
-def library_trunk_weights(model):
-    """The trunk's parameters in bf16, channels_last, for ``library_trunk``."""
-    bf = lambda t: t.detach().to(torch.bfloat16)
-    return [(bf(b.conv1.conv.weight).contiguous(memory_format=torch.channels_last),
-             bf(b.conv1.conv.bias), bf(b.act.alpha),
-             bf(b.conv2.conv.weight).contiguous(memory_format=torch.channels_last),
-             bf(b.conv2.conv.bias)) for b in model.blocks]
-
-
-def library_trunk(x_nchw, params):
-    """The trunk as one PyTorch library conv per conv: bf16 ``F.conv2d`` in
-    channels_last (the yardstick; the port never calls it)."""
-    h = x_nchw
-    for w1, b1, alpha, w2, b2 in params:
-        y = F.prelu(F.conv2d(h, w1, b1, padding=1), alpha)
-        h = h + F.conv2d(y, w2, b2, padding=1)
-    return h
 
 
 KERNEL_KEYS = {"residual_trunk": "trunk", "extract_overlapping_patches": "patches"}
@@ -1714,120 +1675,24 @@ def _levels(a, b):
     return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
 
 
-def _load_client(socket_path, bodies, count, offset, latencies, failures):
-    """One client of the load generator: a persistent connection that sends
-    ``count`` bodies in the daemon's framing, each timed from its first byte
-    sent to its reply's last byte read (the reply is checked, not decoded)."""
-    frame = struct.Struct(">Q")
-    try:
-        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as sock:
-            sock.connect(socket_path)
-            reader = sock.makefile("rb")
-            for r in range(count):
-                body = bodies[(offset + r) % len(bodies)]
-                t0 = time.perf_counter()
-                sock.sendall(frame.pack(len(body)) + body)
-                head = reader.read(1 + frame.size)
-                payload = reader.read(frame.unpack(head[1:])[0])
-                latencies.append(time.perf_counter() - t0)
-                if head[:1] != b"\x00" or payload[:8] != b"\x89PNG\r\n\x1a\n":
-                    failures.append(f"request {r}: {payload[:200]!r}")
-    except Exception as e:  # reported by the caller
-        failures.append(repr(e))
-
-
-def load_generator(socket_path, body_paths, levels):
-    """The daemon's load: for each (clients, requests) of ``levels``, that
-    many threads, one connection each, the requests split over them.
-    Returns [(clients, latencies in s, wall s, failures), ...]."""
-    bodies = [Path(p).read_bytes() for p in body_paths]
-    results = []
-    for clients, requests in levels:
-        latencies, failures = [], []
-        threads = [threading.Thread(target=_load_client, args=(
-            socket_path, bodies, requests // clients, c, latencies, failures))
-            for c in range(clients)]
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        results.append((clients, latencies, time.perf_counter() - t0, failures))
-    return results
-
-
 def run_load(socket_path, bodies, work):
-    """``load_generator`` in a process of its own, as the daemon's users'
-    clients are (no share of the server's interpreter lock), over
-    LOAD_WARMUP and then LOAD_REQUESTS at each of LOAD_CLIENTS; requests/s
-    and latency over all requests of each level."""
+    """``tools.bench_serve.load_generator`` in a process of its own, as the
+    daemon's users' clients are (no share of the server's interpreter lock),
+    over LOAD_WARMUP and then LOAD_REQUESTS at each of LOAD_CLIENTS;
+    requests/s and latency over all requests of each level."""
     body_paths = []
     for i, body in enumerate(bodies):
         body_paths.append(str(work / f"load_{i}.png"))
         Path(body_paths[-1]).write_bytes(body)
-    spec = {"socket_path": socket_path, "body_paths": body_paths,
-            "levels": [LOAD_WARMUP] + [(n, LOAD_REQUESTS) for n in LOAD_CLIENTS]}
-    proc = subprocess.run(
-        [sys.executable, "-c", "import json, sys, chip_smoke; print(json.dumps("
-         "chip_smoke.load_generator(**json.loads(sys.argv[1]))))", json.dumps(spec)],
-        cwd=ROOT, capture_output=True, text=True, timeout=LOAD_TIMEOUT_S)
-    if proc.returncode:
-        raise AssertionError(f"the load generator exited {proc.returncode}: {proc.stderr[-2000:]}")
+    levels = [LOAD_WARMUP] + [(n, LOAD_REQUESTS) for n in LOAD_CLIENTS]
     under_load = {}
-    for clients, latencies, wall, failures in json.loads(proc.stdout.splitlines()[-1])[1:]:
+    for clients, latencies, wall, failures in bench_serve.run_load(
+            socket_path, body_paths, levels, timeout=LOAD_TIMEOUT_S)[1:]:
         if failures or len(latencies) != LOAD_REQUESTS:
             raise AssertionError(f"load with {clients} clients: {len(latencies)} requests, "
                                  f"failures {failures[:5]}")
-        ms = np.array(latencies) * 1e3
-        under_load[clients] = {
-            "requests": len(latencies), "requests_per_s": len(latencies) / wall,
-            "p50_ms": float(np.percentile(ms, 50)), "p90_ms": float(np.percentile(ms, 90)),
-            "p99_ms": float(np.percentile(ms, 99)), "max_ms": float(ms.max()),
-            "mean_ms": float(ms.mean())}
+        under_load[clients] = bench_serve.latency_summary(latencies, wall)
     return under_load
-
-
-def alternating_ms(fns, runs, warmup=2):
-    """CUDA-event medians of several functions, run in turns ``runs`` times
-    after ``warmup`` turns."""
-    for _ in range(warmup):
-        for fn in fns.values():
-            fn()
-    torch.cuda.synchronize()
-    times = {name: [] for name in fns}
-    for _ in range(runs):
-        for name, fn in fns.items():
-            begin = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            begin.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times[name].append(begin.elapsed_time(end))
-    return {name: statistics.median(t) for name, t in times.items()}
-
-
-def tail_stage_ms(training, poly, lr_nhwc):
-    """CUDA-event times of the two tails' stages on one batch, each stage on
-    the input the previous one gives, from the shared features."""
-    from simplesr_tpu_torch.models.srresnet import output_conv
-    from simplesr_tpu_torch.ops.shuffle import depth_to_space_nchw
-
-    with torch.inference_mode():
-        h = training.features(lr_nhwc)
-        stages = [("subpixel_1", training.upsample[0]), ("subpixel_2", training.upsample[1]),
-                  ("out_conv_f32+tanh", lambda t: torch.tanh(output_conv(t, training.out)))]
-        poly_stages = [("PolyUp_1", lambda t: poly.poly_up(t, 1)),
-                       ("PolyUp_2", lambda t: poly.poly_up(t, 2)),
-                       ("PolyOut_f32+d2s+tanh", lambda t: torch.tanh(
-                           depth_to_space_nchw(poly.poly_out(t), 4)))]
-        times = {}
-        for chain in (stages, poly_stages):
-            x = h
-            for name, fn in chain:
-                times[name] = cuda_ms(lambda: fn(x), runs=10, warmup=2)
-                x = fn(x)
-    return times
 
 
 def serving_phase(dev, work, launches_by_path, card, tiled_png, tiled_lr, gallery_lr,
@@ -4182,6 +4047,128 @@ def image_formats_phase(dev, work, launches_by_path, card):
             "phase_s": time.perf_counter() - t_phase}
 
 
+MEASURE_TAIL_SHAPE = (2, 64)   # batch, LR side of the tail forms' check and timing
+MEASURE_TRUNK = ("4", "64", "5")  # batch, side, runs: 16 blocks x 64 filters
+# remat must lower the step's peak: batch 4 of 96^2 crops, where the
+# trunk's stored activations, not the HR tail's, dominate what the step holds
+MEASURE_REMAT = ["--configs", "srresnet:16,rrdb:8", "--batch", "4", "--crop", "96"]
+MEASURE_BF16_QUALITY = {"n_train": 64, "n_val": 16}
+MEASURE_HOST_CROPS = 8
+MEASURE_SERVE = ["4", "1", "--daemon-clients", "2"]
+MEASURE_SERVE_CUTS = {"MAX_BATCH": 4, "LR_HW": 64}  # fewer, smaller buckets to warm
+
+
+def _finite_rows(tool, rows, keys):
+    """Each row has ``keys`` and every number in it is finite."""
+    if not rows:
+        raise AssertionError(f"{tool}: no rows")
+    for row in rows:
+        missing = [k for k in keys if k not in row]
+        bad = {k: v for k, v in row.items() if isinstance(v, float) and not np.isfinite(v)}
+        if missing or bad:
+            raise AssertionError(f"{tool}: row {row} lacks {missing} or has {bad}")
+
+
+def measurement_phase(dev, work, launches_by_path, card):
+    """Phase 19: the measurement and study tools at cut sizes (see the
+    docstring); returns each tool's launches and seconds."""
+    from simplesr_tpu_torch.models import RRDBNet, SRResNet
+    from simplesr_tpu_torch.tools import (bench_rrdb_tail, bench_trunk_kernel,
+                                          bench_upsample_tail, bf16_grad_study,
+                                          host_assembly_profile, remat_study, train_roofline)
+
+    start("19 measurement and study tools")
+    summary = {}
+
+    def tool(name, run, keys):
+        t = time.perf_counter()
+        rows, launches = counted(run)
+        launches_by_path[f"tool_{name}"] = launches
+        summary[name] = {"launches": launches, "seconds": time.perf_counter() - t}
+        _finite_rows(name, rows, keys)
+        return rows
+
+    rows = tool("bench_trunk_kernel", lambda: bench_trunk_kernel.main(list(MEASURE_TRUNK)),
+                ("kernel", "ms_per_fwd", "device_ms", "tflops_per_s", "bound_ms", "card"))
+    if [r["kernel"] for r in rows] != ["trunk_cuda", "cudnn_channels_last", "plain"]:
+        raise AssertionError(f"bench_trunk_kernel rows {rows}")
+    log(19, tool="bench_trunk_kernel", rows=rows)
+
+    # (b) the tail forms: each equal to the model's own tail on the card
+    batch, side = MEASURE_TAIL_SHAPE
+    torch.manual_seed(SEED)
+    form_err = {}
+    for model, build in ((SRResNet(4, batch_norm=False), bench_upsample_tail.srresnet_tail_forms),
+                         (RRDBNet(4, num_rrdb_blocks=1), bench_rrdb_tail.rrdb_tail_forms)):
+        model = model.to(dev).eval()
+        forms, _, _ = build(model)
+        x = bench_upsample_tail.features(batch, side, model.dtype, dev)
+        with torch.inference_mode():
+            ref = model.tail(x)
+            for name, fn in forms.items():
+                diff = (fn(x) - ref).abs()
+                form_err[name] = {"max_abs": diff.max().item(), "mean_abs": diff.mean().item()}
+    log(19, check="tail forms vs the model's tail", shape=[batch, 64, side, side],
+        errors=form_err, tol_max_abs=POLY_MAX_ABS_TOL, tol_mean_abs=POLY_MEAN_ABS_TOL)
+    for name, d in form_err.items():
+        if not (d["max_abs"] < POLY_MAX_ABS_TOL and d["mean_abs"] < POLY_MEAN_ABS_TOL):
+            raise AssertionError(f"tail form {name} differs from the model's tail: {d}")
+    shape = [str(batch), str(side), "5"]
+    for name, module in (("bench_upsample_tail", bench_upsample_tail),
+                         ("bench_rrdb_tail", bench_rrdb_tail)):
+        rows = tool(name, lambda: module.main(shape), ("stage", "ms", "card"))
+        log(19, tool=name, rows=rows)
+
+    # (d) remat: lower peak memory and fewer saved bytes
+    rows = tool("remat_study", lambda: remat_study.main(MEASURE_REMAT),
+                ("arch", "remat", "peak_bytes", "peak_excess_bytes", "saved_bytes"))
+    log(19, tool="remat_study", rows=rows)
+    for plain, remat in zip(rows[::2], rows[1::2]):
+        if not (remat["peak_bytes"] < plain["peak_bytes"]
+                and remat["saved_bytes"] < plain["saved_bytes"]):
+            raise AssertionError(f"remat does not lower {plain['arch']}'s memory: {plain}, "
+                                 f"{remat}")
+
+    rows = tool("train_roofline", lambda: train_roofline.main(
+        ["--fast", "--out", str(work / "train_roofline")]),
+        ("step_ms", "fwd_ms", "step_tflops", "step_tc_util", "fwd_tflops"))
+    log(19, tool="train_roofline", rows=rows)
+
+    with patched(bf16_grad_study, "QUALITY", lambda q: {**q, **MEASURE_BF16_QUALITY}):
+        result = tool("bf16_grad_study", lambda: [bf16_grad_study.main(
+            ["--steps", "3", "--epochs", "1", "--out", str(work / "bf16")])], ("variants",))
+    variants = result[0]["variants"]
+    _finite_rows("bf16_grad_study", list(variants.values()),
+                 ("final_val_psnr_x2", "val_psnr_curve_x2"))
+    log(19, tool="bf16_grad_study", variants=variants)
+
+    with patched(host_assembly_profile, "NUM_CROPS", lambda n: MEASURE_HOST_CROPS):
+        rows = tool("host_assembly_profile", lambda: [host_assembly_profile.main(
+            ["--out", str(work / "host_assembly")])],
+            ("decode_cold_s", "crop_bank_mpix_s", "stack_mpix_s", "prepare_mpix_s",
+             "workers=1 (host path)", "device-resident pool"))
+    log(19, tool="host_assembly_profile", result=rows[0])
+
+    with contextlib.ExitStack() as cuts:
+        for name, value in MEASURE_SERVE_CUTS.items():
+            cuts.enter_context(patched(bench_serve, name, lambda _, v=value: v))
+        rows = tool("bench_serve", lambda: bench_serve.main(MEASURE_SERVE + ["--model",
+                                                                             str(FLAGSHIP)]),
+                    ("stage", "clients", "requests_per_s", "latency_ms_p50", "latency_ms_p95"))
+    log(19, tool="bench_serve", rows=rows)
+    stages = {r["stage"] for r in rows}
+    if any(r["failed"] for r in rows):
+        raise AssertionError(f"bench_serve: failed requests {rows}")
+    if stages != {"engine_f32", "engine_u8", "engine_u8_paired2", "socket_png_persistent",
+                  "socket_png_reconnect", "http_png_keepalive"}:
+        raise AssertionError(f"bench_serve stages {stages}")
+    log(19, summary=summary, card=card)
+    for name in ("bench_trunk_kernel", "train_roofline", "bf16_grad_study", "bench_serve"):
+        if not summary[name]["launches"]["trunk"]:
+            raise AssertionError(f"{name} launched no trunk kernel: {summary[name]}")
+    return summary
+
+
 def io_stderr(run):
     """What ``run()`` writes to stderr before it exits (argparse's error)."""
     import io
@@ -4483,6 +4470,7 @@ def main(work):
     quality_phase(dev, work, launches_by_path, smi_line)
     denoising_phase(dev, work, launches_by_path, smi_line)
     image_formats = image_formats_phase(dev, work, launches_by_path, smi_line)
+    measurement_phase(dev, work, launches_by_path, smi_line)
     # the profilers of phases 7 to 10 and 12 last, after every timing
     for profile in (profile_training, profile_yaml_run, profile_srgan, profile_esrgan,
                     profile_surface):

@@ -22,9 +22,9 @@ def build_generator_model(upsample_factor, architecture="srresnet", num_blocks=1
                           device="cuda"):
     """Build a generator from a saved model's config, in eval mode, on
     ``device``. Takes the same keys as simplesr_tpu's builder. ``remat``
-    recomputes each RRDB block in the backward (``torch.utils.checkpoint``);
-    for SRResNet it changes nothing: the kernel's trunk recomputes in its
-    backward anyway, and the other SRResNets store their activations."""
+    recomputes each RRDB block or SRResNet ResBlock in the backward
+    (``blocks.checkpointed``); an SRResNet whose trunk runs the kernel
+    recomputes in ``TrunkFunction``'s backward whatever the flag says."""
     device = resolve_device(device)
     dtype = dtype_from_name(dtype)
     if architecture == "rrdb":
@@ -35,7 +35,8 @@ def build_generator_model(upsample_factor, architecture="srresnet", num_blocks=1
                          growth_channels=growth_channels, remat=remat)
     elif architecture == "srresnet":
         module = SRResNet(upsample_factor=upsample_factor, num_filters=num_filters,
-                          num_res_blocks=num_blocks, batch_norm=batch_norm, dtype=dtype)
+                          num_res_blocks=num_blocks, batch_norm=batch_norm, dtype=dtype,
+                          remat=remat)
     else:
         raise ValueError("architecture not recognized")
     return module.to(device).eval()

@@ -14,15 +14,40 @@ a stride-2 3x3 conv on an even side pads (0, 1), where torch's
 ``padding=1`` would pad (1, 1).
 """
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from simplesr_tpu_torch.core.dtypes import cudnn_tf32
 from simplesr_tpu_torch.ops.shuffle import depth_to_space_nchw
 from simplesr_tpu_torch.parallel.comm import batch_moments
+
+
+_RECOMPUTE = threading.local()  # per thread: autograd may recompute on its own threads
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Within: BatchNorm in training mode leaves its running statistics
+    alone (a checkpointed block's recomputation in the backward)."""
+    saved = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = saved
+
+
+def checkpointed(block, x):
+    """``block(x)`` whose activations are recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) under ``recomputing()``."""
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 def same_padding(size, kernel_size, stride):
@@ -140,10 +165,11 @@ def batch_norm(bn, y):
     (``parallel.comm.batch_moments``)."""
     if bn.training:
         mean, var = batch_moments(y, (0, 2, 3))
-        keep = 1.0 - bn.momentum  # Keras / flax momentum
-        with torch.no_grad():
-            bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
-            bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
+        if not getattr(_RECOMPUTE, "active", False):
+            keep = 1.0 - bn.momentum  # Keras / flax momentum
+            with torch.no_grad():
+                bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
+                bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
     else:
         mean, var = bn.running_mean, bn.running_var
     mul = torch.rsqrt(var + bn.eps) * bn.weight

@@ -18,16 +18,16 @@ CUDA, as SRResNet's does. Input LR NHWC in [0, 1]; output NHWC float32 in
 [-1, 1].
 
 ``remat=True`` recomputes each RRDB block in the backward
-(``torch.utils.checkpoint``) instead of storing its dense concatenations.
+(``blocks.checkpointed``) instead of storing its dense concatenations.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from simplesr_tpu_torch.core.dtypes import OUTPUT_CONV_TF32
-from simplesr_tpu_torch.models.blocks import SubpixelConvBlock, conv2d, he_conv, pinned_conv2d
+from simplesr_tpu_torch.models.blocks import (SubpixelConvBlock, checkpointed, conv2d, he_conv,
+                                              pinned_conv2d)
 
 _ALLOWED_SCALES = (2, 4, 8)
 
@@ -115,7 +115,7 @@ class RRDBNet(nn.Module):
         for i in range(self.num_rrdb_blocks):
             block = getattr(self, f"RRDBBlock_{i}")
             if self.remat and torch.is_grad_enabled():
-                trunk = checkpoint(block, trunk, use_reentrant=False)
+                trunk = checkpointed(block, trunk)
             else:
                 trunk = block(trunk)
         trunk = skip + self.residual_scaling * trunk

@@ -18,14 +18,21 @@ again whenever one changed), and differentiable through them. Any other
 model (BatchNorm, float32, another width) runs its ResBlock modules with
 flax's numerics on every device, as the JAX package runs every model: the
 kernel, like the TPU kernel, takes C = 64 bf16 BN-free blocks only.
+
+``remat=True`` recomputes each ResBlock in the backward instead of storing
+its activations (``blocks.checkpointed``), as the JAX model's ``nn.remat``
+does, with BatchNorm or without; BatchNorm's running statistics still move
+once a step. The kernel's trunk needs no flag: ``TrunkFunction`` stores only
+the trunk's input and recomputes the blocks in its backward. Parameter names
+are ``blocks.{i}...`` either way.
 """
 
 import torch
 import torch.nn as nn
 
 from simplesr_tpu_torch.core.dtypes import OUTPUT_CONV_TF32
-from simplesr_tpu_torch.models.blocks import (ConvLayer, PReLU, SubpixelConvBlock, he_conv,
-                                              pinned_conv2d)
+from simplesr_tpu_torch.models.blocks import (ConvLayer, PReLU, SubpixelConvBlock, checkpointed,
+                                              he_conv, pinned_conv2d)
 from simplesr_tpu_torch.ops.kernels.trunk import (
     KERNEL_WIDTH,
     TrunkFunction,
@@ -59,7 +66,7 @@ class SRResNet(nn.Module):
     and returns (B, sH, sW, 3) float32 in [-1, 1]."""
 
     def __init__(self, upsample_factor=4, num_filters=64, num_res_blocks=16,
-                 momentum=0.8, batch_norm=True, dtype=torch.bfloat16):
+                 momentum=0.8, batch_norm=True, dtype=torch.bfloat16, remat=False):
         super().__init__()
         if upsample_factor not in _ALLOWED_SCALES:
             raise ValueError(
@@ -70,6 +77,7 @@ class SRResNet(nn.Module):
         self.momentum = momentum
         self.batch_norm = batch_norm
         self.dtype = dtype
+        self.remat = remat
         self.head = ConvLayer(3, num_filters, 9, dtype=dtype)
         self.head_act = PReLU(num_filters)
         self.blocks = nn.ModuleList(
@@ -111,8 +119,9 @@ class SRResNet(nn.Module):
 
     def _trunk(self, h):
         if not self.uses_trunk_kernel:
+            remat = self.remat and torch.is_grad_enabled()
             for block in self.blocks:
-                h = block(h)
+                h = checkpointed(block, h) if remat else block(h)
             return h
         params = self.trunk_parameters()
         out = TrunkFunction.apply(h.permute(0, 2, 3, 1), self.trunk_weights(params), *params)

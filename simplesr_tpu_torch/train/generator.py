@@ -85,7 +85,7 @@ class Generator:
         self._kernel_size = kernel_size
         self._residual_scaling = residual_scaling
         self._growth_channels = growth_channels
-        self._remat = remat  # kept for module_config; the port's trunk recomputes anyway
+        self._remat = remat  # the module's (models.build_generator_model), and module_config's
         self._batch_norm = batch_norm
 
         device = resolve_device(device)

@@ -335,6 +335,12 @@ IMAGE_FORMAT_MODULES = ["data/pnm.py", "data/image.py", "data/bmp.py", "data/pip
 # encoder's binding
 DENOISING_MODULES = ["tools/jpg_noise_campaign.py", "tools/ensemble_study.py",
                      "tools/ema_study.py", "data/native_loader.py"]
+# the measurement and study tools and the timing harness they share
+MEASURE_MODULES = ["tools/bench_timing.py", "tools/bench_trunk_kernel.py",
+                   "tools/bench_upsample_tail.py", "tools/bench_rrdb_tail.py",
+                   "tools/bench_serve.py", "tools/remat_study.py", "tools/train_roofline.py",
+                   "tools/bf16_grad_study.py", "tools/host_assembly_profile.py",
+                   "tools/watched_run.py"]
 PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
                     "parallel/fsdp.py", "parallel/spatial.py", "parallel/tensor.py",
                     "parallel/pipeline.py"]
@@ -346,7 +352,7 @@ def test_port_imports_only_torch_numpy_and_stdlib():
     assert {ROOT / "simplesr_tpu_torch" / m
             for m in GAN_MODULES + SERVING_MODULES + TRAINING_SURFACE_MODULES
             + PARALLEL_MODULES + IMAGE_INPUT_MODULES + QUALITY_MODULES
-            + DENOISING_MODULES + IMAGE_FORMAT_MODULES} <= set(files)
+            + DENOISING_MODULES + IMAGE_FORMAT_MODULES + MEASURE_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
