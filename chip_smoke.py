@@ -65,10 +65,18 @@ plain PyTorch version, in one process, with no arguments:
      ``validation_step`` and ``generate`` call (counted by the phase);
      ``--resume`` with 3 epochs starts at epoch 2 with the first run's
      histories and early-stopping state and runs one epoch; a run that gets
-     SIGTERM after 10 steps exits 75 and leaves a resume point; the
+     SIGTERM after 55 steps exits 75 and leaves a resume point, and its
+     ``--resume`` finishes it; the TensorBoard event files, through the
+     port's own writer (``utils/tensorboard.py``) and read back with
+     ``read_scalars``: an events file in each of the four log directories,
+     the epoch scalars equal to the JSON epoch histories at float32 at steps
+     1..epochs, and after each resume (of the finished run and of the
+     preempted one) the epoch and batch steps running on across the
+     processes' files with no gap and no repeat; the
      pipeline on the card against the CPU for the same config and seed (3
      training batches: HR bit-equal, LR max abs < 1e-4). Printed, not
-     gated: seconds per epoch (from ``before_epoch`` to ``after_epoch``,
+     gated: the scalars in each log directory and the writer's time in the
+     run, seconds per epoch (from ``before_epoch`` to ``after_epoch``,
      validation and plots included), train steps per second, HR MPix/s end
      to end (pipeline included), the share of each epoch spent waiting on
      the pipeline's generators, the time to decode the 16 PNGs, peak
@@ -313,7 +321,13 @@ plain PyTorch version, in one process, with no arguments:
      and edges where the flagship's receptive field passes the route's
      overlap (LARGE_*_BAND) it equals the untiled upscale of the same
      decoded array within ROUTE_*_TOL; the bands' differences are
-     printed;
+     printed. Slice 17 adds animated WebP (the first frame on its canvas),
+     PSD (the merged image) and DIB: (a) every fixture of
+     data/corpus/psd_dib_anim against its manifest's digest, PSB, 16-bit
+     and ZIP-compressed PSDs refused by name, and one-thread MPix/s on the
+     96 x 128 tile as an animated WebP, PackBits RGB, raw CMYK and
+     PackBits Lab PSDs and a DIB; (b) the animated WebP, the PackBits RGB
+     PSD and the DIB served as above;
  19. the measurement and study tools (``simplesr_tpu_torch/tools``) at cut
      sizes, each with the launch counts set to 0 just before and read just
      after: ``bench_trunk_kernel`` (kernel, cuDNN and plain trunk at batch 4
@@ -422,19 +436,23 @@ PNG_MAX_LEVELS = 1  # a written PNG vs the route's output, truncated to uint8
 # Phase 8: the production recipe from its YAML file, cut to the gallery.
 RECIPE = ROOT / "examples/training/srresnet_x4_paired_production.yaml"
 YAML_EPOCHS = 2
-PREEMPT_AFTER_STEPS = 10
+PREEMPT_AFTER_STEPS = 55  # past the first batch scalar (every 50 steps), inside epoch 1
+TB_BATCH_INTERVAL = 50  # SRModel's default, which the YAML path keeps
+LOG_DIRS = ("train/batch", "train/epoch", "val/batch", "val/epoch")
 PIPELINE_LR_TOL = 1e-4  # LR on [0, 1], card vs CPU: the resize's float32 sums
 EXIT_PREEMPTED = 75
 # The save-dir tree of the JAX package's run_training for 2 epochs, without
-# the checkpoints' contents (orbax there, torch.save here) and the
-# TensorBoard event files (tests/test_torch_training_loop.py holds the two
-# trees equal on the CPU).
+# the checkpoints' contents (orbax there, torch.save here), a TensorBoard
+# event file under its name without the time and host
+# (tests/test_torch_training_loop.py holds the two trees equal on the CPU).
 JAX_RUN_TREE = {
     ".", "checkpoints", "checkpoints/resnet_resume_meta.json", "config_logfile",
     "json_dump", "json_dump/resnet_train_batch_history.json",
     "json_dump/resnet_train_epoch_history.json", "json_dump/resnet_valid_batch_history.json",
     "json_dump/resnet_valid_epoch_history.json", "log", "logs", "logs/train",
     "logs/train/batch", "logs/train/epoch", "logs/val", "logs/val/batch", "logs/val/epoch",
+    "logs/train/batch/events.out.tfevents", "logs/train/epoch/events.out.tfevents",
+    "logs/val/batch/events.out.tfevents", "logs/val/epoch/events.out.tfevents",
     "models", "models/resnet_gen_1.msgpack", "models/resnet_gen_2.msgpack",
     "models/resnet_gen_best.msgpack", "perf_logfile", "pics", "pics/test", "pics/train",
     "pics/train/resnet", "pics/train/resnet/00002_000.png", "pics/val", "pics/val/resnet",
@@ -883,9 +901,38 @@ def run_tree(root):
         if rel.startswith("checkpoints" + os.sep):
             continue
         out.add(rel)
-        if not rel.startswith("logs"):
-            out.update(os.path.normpath(os.path.join(rel, f)) for f in filenames)
+        out.update(os.path.normpath(os.path.join(
+            rel, "events.out.tfevents" if "tfevents" in f else f)) for f in filenames)
     return out
+
+
+def run_scalars(save_path):
+    """The run's TensorBoard scalars by log directory, as ``read_scalars``
+    reads each directory's event files (oldest first), and the count of
+    event files in each."""
+    from simplesr_tpu_torch.utils.tensorboard import event_files, read_scalars
+
+    logs = Path(save_path) / "logs"
+    return ({d: read_scalars(logs / d) for d in LOG_DIRS},
+            {d: len(event_files(logs / d)) for d in LOG_DIRS})
+
+
+def scalar_steps(scalars):
+    """{tag: sorted steps} of one log directory's scalars."""
+    return {tag: sorted(step for step, _ in values) for tag, values in scalars.items()}
+
+
+def check_scalar_steps(label, scalars, epochs, iterations):
+    """Each epoch tag at steps 1..epochs and each train batch tag at every
+    TB_BATCH_INTERVAL-th step up to ``iterations``, each once, across the
+    run's event files: no gap and no repeat."""
+    want = {"train/epoch": list(range(1, epochs + 1)), "val/epoch": list(range(1, epochs + 1)),
+            "train/batch": list(range(TB_BATCH_INTERVAL, iterations + 1, TB_BATCH_INTERVAL))}
+    got = {d: scalar_steps(scalars[d]) for d in want}
+    bad = {d: steps for d, steps in got.items()
+           if not steps or any(v != want[d] for v in steps.values())}
+    if bad:
+        raise AssertionError(f"{label}: TensorBoard steps {bad}, expected {want}")
 
 
 def run_instruments():
@@ -981,6 +1028,7 @@ def yaml_phase(dev, work, launches_by_path, card, notes=None):
     from simplesr_tpu_torch.data.image import read_rgb_u8
     from simplesr_tpu_torch.tools import train as train_tool
     from simplesr_tpu_torch.train import SRModel, load_model
+    from simplesr_tpu_torch.utils.tensorboard import SummaryWriter
 
     start("8 training from a YAML file: the production recipe")
     t_phase = time.perf_counter()
@@ -1015,9 +1063,21 @@ def yaml_phase(dev, work, launches_by_path, card, notes=None):
 
     # the run
     first_yaml = write("run.yaml")
+    writer_s = [0.0, 0]  # seconds in SummaryWriter.add_scalar, calls
+
+    def timed_scalar(original):
+        def wrapper(self, *a, **k):
+            t = time.perf_counter()
+            original(self, *a, **k)
+            writer_s[0] += time.perf_counter() - t
+            writer_s[1] += 1
+        return wrapper
+
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    code, launches = counted(lambda: instrumented(lambda: train_tool.main([str(first_yaml)])))
+    with patched(SummaryWriter, "add_scalar", timed_scalar):
+        code, launches = counted(lambda: instrumented(
+            lambda: train_tool.main([str(first_yaml)])))
     run_s = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
     launches_by_path["run_training_yaml_x2_epochs"] = launches
@@ -1064,6 +1124,29 @@ def yaml_phase(dev, work, launches_by_path, card, notes=None):
         raise AssertionError(f"launches {launches} for calls {first_calls}, "
                              f"expected calls {expected}")
 
+    # TensorBoard: the port's event files, read back
+    scalars, files = run_scalars(conf.save_path)
+    sizes = {d: sum(f.stat().st_size for f in (Path(conf.save_path) / "logs" / d).iterdir())
+             for d in LOG_DIRS}
+    matches = {}
+    for d, key in (("train/epoch", "train_epoch"), ("val/epoch", "valid_epoch")):
+        history = json.loads((Path(conf.save_path) / f"json_dump/resnet_{key}_history.json")
+                             .read_text())
+        matches[d] = sorted(scalars[d]) == sorted(history) and all(
+            [s for s, _ in scalars[d][tag]] == list(range(1, YAML_EPOCHS + 1))
+            and np.array_equal(np.float32([v for _, v in scalars[d][tag]]),
+                               np.float32(history[tag])) for tag in history)
+    log(8, check="TensorBoard event files of the run", event_files=files, bytes=sizes,
+        scalars={d: sum(map(len, scalars[d].values())) for d in LOG_DIRS},
+        tags={d: sorted(scalars[d]) for d in LOG_DIRS}, epoch_scalars_as_histories=matches,
+        writer_calls=writer_s[1], writer_s=writer_s[0], writer_share_of_run=writer_s[0] / run_s,
+        card=card)
+    if any(n != 1 for n in files.values()) or not all(sizes.values()) \
+            or not all(matches.values()):
+        raise AssertionError(f"TensorBoard: files {files}, bytes {sizes}, "
+                             f"epoch scalars as the histories {matches}")
+    check_scalar_steps("the run", scalars, YAML_EPOCHS, model.iterations())
+
     # the _best file against the module that trained it
     crop = torch.from_numpy(decoded[2][:48, :64].astype(np.float32) / 255.0)[None].to(dev)
     best = Path(conf.model_dir) / "resnet_gen_best.msgpack"
@@ -1092,8 +1175,14 @@ def yaml_phase(dev, work, launches_by_path, card, notes=None):
             and seen["resumed_early_stop"] == saved_early
             and len(resumed.histories()["train_epoch"]["generator_loss"]) == YAML_EPOCHS + 1):
         raise AssertionError("resume did not continue the run at its third epoch")
+    scalars, files = run_scalars(conf.save_path)
+    log(8, check="TensorBoard after --resume", event_files=files,
+        steps={d: sorted({s for v in scalars[d].values() for s, _ in v}) for d in LOG_DIRS})
+    if any(n != 2 for n in files.values()):
+        raise AssertionError(f"--resume did not start a new events file: {files}")
+    check_scalar_steps("--resume", scalars, YAML_EPOCHS + 1, resumed.iterations())
 
-    # preemption: SIGTERM after 10 steps of the first epoch
+    # preemption: SIGTERM after PREEMPT_AFTER_STEPS steps of the first epoch, then --resume
     steps = [0]
 
     def preempting(original):
@@ -1112,12 +1201,24 @@ def yaml_phase(dev, work, launches_by_path, card, notes=None):
     ckpt = Path(seen["conf"].checkpoint_dir)
     meta = json.loads((ckpt / "resnet_resume_meta.json").read_text())
     point = sorted(p.name for p in (ckpt / "resnet_resume").glob("step_*.pt"))
-    log(8, check="SIGTERM after 10 steps", exit=code, steps=steps[0], resume_point=point,
-        completed_epochs=meta["completed_epochs"],
+    log(8, check=f"SIGTERM after {PREEMPT_AFTER_STEPS} steps", exit=code, steps=steps[0],
+        resume_point=point, completed_epochs=meta["completed_epochs"],
         handler_restored=signal.getsignal(signal.SIGTERM) == handler)
     if not (code == EXIT_PREEMPTED and point == [f"step_{PREEMPT_AFTER_STEPS}.pt"]
             and meta["completed_epochs"] == 0 and signal.getsignal(signal.SIGTERM) == handler):
         raise AssertionError("a preempted run did not exit 75 with a resume point")
+    preempt_dir = seen["conf"].save_path
+    code = instrumented(lambda: train_tool.main([str(preempt_yaml), "--resume"]))
+    scalars, files = run_scalars(preempt_dir)
+    log(8, check="--resume of the preempted run", exit=code,
+        same_dir=seen["conf"].save_path == preempt_dir,
+        iterations=seen["model"].iterations(), event_files=files,
+        steps={d: sorted({s for v in scalars[d].values() for s, _ in v}) for d in LOG_DIRS})
+    if not (code == 0 and seen["conf"].save_path == preempt_dir
+            and all(n == 2 for n in files.values())):
+        raise AssertionError(f"the preempted run's --resume: exit {code}, files {files}")
+    check_scalar_steps("the preempted run's --resume", scalars, YAML_EPOCHS,
+                       seen["model"].iterations())
 
     # the pipeline on the card against the CPU
     def fresh_pipeline(device):
@@ -3786,12 +3887,14 @@ def denoising_phase(dev, work, launches_by_path, card):
 # ------------------------------------------------------------------ phase 18
 # The formats PIL opens for the JAX package beside PNG and JPEG, and the
 # JPEG processes beside baseline: host decoders of the port's own
-# (csrc/host/loader.cpp, webp.cpp, gif.cpp, tiff.cpp; data/pnm.py,
-# data/bmp.py), held to the digests of PIL's decodes that the corpus's
-# manifest keeps (there is no PIL here), timed, and served.
+# (csrc/host/loader.cpp, webp.cpp, gif.cpp, tiff.cpp, psd.cpp and the
+# texture formats'; data/pnm.py, data/bmp.py, data/ico.py), held to the
+# digests of PIL's decodes that the corpora's manifests keep (there is no
+# PIL on the card's machine), timed, and served.
 
 FORMATS_MANIFEST = ROOT / "data/corpus/image_formats/MANIFEST.json"
 TEXTURES_MANIFEST = ROOT / "data/corpus/texture_formats/MANIFEST.json"
+LAYERED_MANIFEST = ROOT / "data/corpus/psd_dib_anim/MANIFEST.json"
 FORMAT_BODIES = {"webp_lossy": "timing_webp_lossy.webp",
                  "webp_lossless": "timing_webp_lossless.webp", "gif": "timing_gif.gif",
                  "tiff_lzw": "timing_tiff_lzw.tif", "ppm": "timing_ppm.ppm",
@@ -3809,6 +3912,11 @@ TEXTURE_BODIES = {"dds_bc7": "timing_dds_bc7.dds", "tga_rle": "timing_tga_rle.tg
 TEXTURE_TIMED = {"dds_bc1": "timing_dds_bc1.dds", "cur_dib8": "timing_cur_dib8.cur",
                  "qoi": "timing_qoi.qoi", "pcx_rgb": "timing_pcx_rgb.pcx",
                  "dcx_p": "timing_dcx_p.dcx", "sgi_rle": "timing_sgi_rle.sgi"}
+# slice 17's formats, the tile in data/corpus/psd_dib_anim: served, then timed only
+LAYERED_BODIES = {"webp_animated": "timing_webp_anim.webp",
+                  "psd_rgb_packbits": "timing_psd_rgb_packbits.psd", "dib": "timing_dib_rgb24.dib"}
+LAYERED_TIMED = {"psd_cmyk_raw": "timing_psd_cmyk_raw.psd",
+                 "psd_lab_packbits": "timing_psd_lab_packbits.psd"}
 LARGE_TEXTURE = 1024  # the (d) texture's side: over upscale_files' 1000-pixel threshold
 LARGE_TEXTURE_SEED = 15
 # The flagship's receptive field reaches 39.5 LR px from a pixel (the 9 x 9
@@ -3867,15 +3975,17 @@ def image_formats_phase(dev, work, launches_by_path, card):
     from simplesr_tpu_torch.eval.evaluation import _as_predictor
     from simplesr_tpu_torch.tools.upscale import upscale_files
 
-    start("18 image formats: WebP, GIF, TIFF, netpbm, RLE BMP, the JPEG processes, DDS, TGA, "
-          "ICO, CUR, QOI, PCX, DCX and SGI decoded, timed and served")
+    start("18 image formats: WebP (still and animated), GIF, TIFF, netpbm, RLE BMP, DIB, the "
+          "JPEG processes, PSD, DDS, TGA, ICO, CUR, QOI, PCX, DCX and SGI decoded, timed and "
+          "served")
     t_phase = time.perf_counter()
 
     # (a) every fixture against its digest of PIL's decode, the refusals
     manifest = json.loads(FORMATS_MANIFEST.read_text())
     textures = json.loads(TEXTURES_MANIFEST.read_text())
+    layered = json.loads(LAYERED_MANIFEST.read_text())
     wrong, counts, refusals = [], {}, {}
-    for entry in manifest["files"] + textures["files"]:
+    for entry in manifest["files"] + textures["files"] + layered["files"]:
         data = (ROOT / entry["file"]).read_bytes()
         try:
             got = hashlib.sha256(decode_image(data, entry["file"]).tobytes()).hexdigest()
@@ -3894,6 +4004,8 @@ def image_formats_phase(dev, work, launches_by_path, card):
                    for k, f in {**FORMAT_BODIES, **TIMED_BODIES}.items()})
     bodies.update({k: (TEXTURES_MANIFEST.parent / f).read_bytes()
                    for k, f in {**TEXTURE_BODIES, **TEXTURE_TIMED}.items()})
+    bodies.update({k: (LAYERED_MANIFEST.parent / f).read_bytes()
+                   for k, f in {**LAYERED_BODIES, **LAYERED_TIMED}.items()})
     mpix = tile.shape[0] * tile.shape[1] / 1e6
     rates = {}
     for kind, body in bodies.items():
@@ -3901,7 +4013,8 @@ def image_formats_phase(dev, work, launches_by_path, card):
         rates[kind] = {"ms": ms, "mpix_per_s": mpix / ms * 1e3, "bytes": len(body)}
     log(18, check="(a) the corpus against its manifest's digests of PIL's decode, and each "
         f"decoder on one thread (median of {DECODE_RUNS}) on a {tile.shape[0]} x "
-        f"{tile.shape[1]} gallery tile", files=counts, pil=[manifest["pil"], textures["pil"]],
+        f"{tile.shape[1]} gallery tile", files=counts,
+        pil=[manifest["pil"], textures["pil"], layered["pil"]],
         wrong=wrong,
         refusals=refusals, decode=rates, card=card)
     if wrong:
@@ -3911,7 +4024,7 @@ def image_formats_phase(dev, work, launches_by_path, card):
     serve_dir = work / "formats_serve"
     serve_dir.mkdir()
     paths = []
-    for kind, name in {**FORMAT_BODIES, **TEXTURE_BODIES}.items():
+    for kind, name in {**FORMAT_BODIES, **TEXTURE_BODIES, **LAYERED_BODIES}.items():
         path = serve_dir / f"{kind}{Path(name).suffix}"
         path.write_bytes(bodies[kind])
         paths.append(path)
@@ -3970,7 +4083,7 @@ def image_formats_phase(dev, work, launches_by_path, card):
     launches_by_path["http_gateway_image_formats_posts"] = http_launches
     gateway_outs = [decode_png(body) if code == 200 else None for code, body in replies]
     result = {
-        "bodies": list(FORMAT_BODIES) + list(TEXTURE_BODIES),
+        "bodies": list(FORMAT_BODIES) + list(TEXTURE_BODIES) + list(LAYERED_BODIES),
         "daemon_bit_equal": [np.array_equal(o, r) for o, r in zip(daemon_outs, refs)],
         "gateway_status": [code for code, _ in replies],
         "gateway_bit_equal": [o is not None and np.array_equal(o, r)
@@ -4034,6 +4147,7 @@ def image_formats_phase(dev, work, launches_by_path, card):
                        "simplesr_tpu_torch/csrc/host/gif.cpp",
                        "simplesr_tpu_torch/csrc/host/tiff.cpp",
                        "simplesr_tpu_torch/csrc/host/dds.cpp",
+                       "simplesr_tpu_torch/csrc/host/psd.cpp",
                        "simplesr_tpu_torch/csrc/host/tga.cpp",
                        "simplesr_tpu_torch/csrc/host/qoi.cpp",
                        "simplesr_tpu_torch/csrc/host/pcx.cpp",

@@ -1,14 +1,14 @@
 """ConfigUtil, the single-YAML config surface, as
 simplesr_tpu.config.config_util: operation modes, the timestamped save-dir
 tree (checkpoints, logs, models, pics/{train,val,test}) with its ``latest``
-symlink, four TensorBoard writers (``torch.utils.tensorboard`` where it can
-be imported, else none, as the JAX package does without tensorboardX),
-data-dir checks, test-originals matching, config mutation for sweeps, and
-``from_yaml``, which builds the config, the pipeline and, for training, the
-SRModel on ``device`` (in GAN mode when the YAML has a ``discriminator``
-section). Under a process group of several ranks every rank takes rank 0's
-save directory, and only rank 0 writes the ``latest`` symlink and
-TensorBoard.
+symlink, four TensorBoard writers (event files of the port's own,
+``utils/tensorboard.py``, which need no tensorboard package; ``tensorboard
+--logdir`` on any machine that has TensorBoard reads them), data-dir checks,
+test-originals matching, config mutation for sweeps, and ``from_yaml``,
+which builds the config, the pipeline and, for training, the SRModel on
+``device`` (in GAN mode when the YAML has a ``discriminator`` section).
+Under a process group of several ranks every rank takes rank 0's save
+directory, and only rank 0 writes the ``latest`` symlink and TensorBoard.
 """
 
 import copy
@@ -22,6 +22,7 @@ from simplesr_tpu_torch.config import yaml_helper
 from simplesr_tpu_torch.core.device import resolve_device
 from simplesr_tpu_torch.parallel import comm
 from simplesr_tpu_torch.utils import logger
+from simplesr_tpu_torch.utils.tensorboard import SummaryWriter
 
 log = logging.getLogger(logger.LIB_LOGGER).getChild(__name__)
 AVAILABLE_OPERATIONS = ["training", "evaluation", "inference", "experiment", "testing"]
@@ -35,14 +36,6 @@ def _rank0s(name):
     box = [name]
     comm.dist.broadcast_object_list(box, src=0)
     return box[0]
-
-
-def _make_summary_writer(log_dir):
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-    except ImportError:  # no tensorboard package on this machine
-        return None
-    return SummaryWriter(log_dir)
 
 
 class ConfigUtil:
@@ -357,10 +350,10 @@ class ConfigUtil:
             self._add_save_dir(os.path.join("logs", "val", "epoch"), "log_dir_val_epoch")
             self._add_save_dir(os.path.join("logs", "val", "batch"), "log_dir_val_batch")
             if not self.dry_run and rank0:  # TensorBoard is rank 0's
-                self.epoch_train_summary_writer = _make_summary_writer(self.log_dir_train_epoch)
-                self.batch_train_summary_writer = _make_summary_writer(self.log_dir_train_batch)
-                self.epoch_validation_summary_writer = _make_summary_writer(self.log_dir_val_epoch)
-                self.batch_validation_summary_writer = _make_summary_writer(self.log_dir_val_batch)
+                self.epoch_train_summary_writer = SummaryWriter(self.log_dir_train_epoch)
+                self.batch_train_summary_writer = SummaryWriter(self.log_dir_train_batch)
+                self.epoch_validation_summary_writer = SummaryWriter(self.log_dir_val_epoch)
+                self.batch_validation_summary_writer = SummaryWriter(self.log_dir_val_batch)
 
     def _update_latest_symlink(self):
         """Point <results>/<operation>/latest at this run's save dir, so

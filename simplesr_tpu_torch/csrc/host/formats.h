@@ -1,14 +1,15 @@
 // The host decoders of the formats that the JAX package opens through PIL
 // beside PNG and JPEG: WebP (webp.cpp), GIF (gif.cpp), TIFF (tiff.cpp), DDS
-// (dds.cpp), TGA (tga.cpp), QOI (qoi.cpp), PCX and DCX (pcx.cpp) and SGI
-// (sgi.cpp). Each decodes the first image of a file in memory to 8-bit RGB as
-// PIL 12.1's Image.open(...).convert("RGB") gives it, and throws FormatError,
-// naming the format, for a file it refuses. loader.cpp dispatches to them in
-// the order of PIL's Image.ID: by magic bytes, and for the formats after
-// slice 14 by the `*_claims` tests, which say whether PIL's plugin opens the
-// file or rejects it at open time in a way that lets Image.open try the next
-// plugin (a SyntaxError, IndexError, TypeError, KeyError, EOFError or
-// struct.error, or an empty size). TGA has no magic: it comes last.
+// (dds.cpp), PSD (psd.cpp), TGA (tga.cpp), QOI (qoi.cpp), PCX and DCX
+// (pcx.cpp) and SGI (sgi.cpp). Each decodes the first image of a file in
+// memory to 8-bit RGB as PIL 12.1's Image.open(...).convert("RGB") gives it,
+// and throws FormatError, naming the format, for a file it refuses.
+// loader.cpp dispatches to them in the order of PIL's Image.ID: by magic
+// bytes, and for the formats after slice 14 by the `*_claims` tests, which
+// say whether PIL's plugin opens the file or rejects it at open time in a
+// way that lets Image.open try the next plugin (a SyntaxError, IndexError,
+// TypeError, KeyError, EOFError or struct.error, or an empty size). TGA has
+// no magic: it comes last.
 //
 // Every length, offset and code read from the file is checked against the
 // buffer before it is used: request bodies come from outside the program.
@@ -63,6 +64,10 @@ inline void pil_cmyk_to_rgb(uint8_t c, uint8_t m, uint8_t y, uint8_t k, uint8_t*
   }
 }
 
+// Pillow's convert("RGB") of one pixel of mode LAB, its a and b bands as
+// PIL holds them (128 is 0): LittleCMS's Lab to sRGB transform (tiff.cpp).
+void pil_lab_to_rgb(uint8_t l, uint8_t a, uint8_t b, uint8_t* rgb);
+
 // One strip or tile of a JPEG-compressed TIFF, decoded by loader.cpp's JPEG
 // decoder as libtiff's tif_jpeg.c drives libjpeg: the JPEGTables stream
 // (tables, may be empty) read first, then the segment; YCbCr converted to
@@ -82,6 +87,7 @@ bool is_tiff(const uint8_t* d, size_t n);
 bool pcx_claims(const uint8_t* d, size_t n);
 bool dcx_claims(const uint8_t* d, size_t n);
 bool dds_claims(const uint8_t* d, size_t n);
+bool psd_claims(const uint8_t* d, size_t n);
 bool qoi_claims(const uint8_t* d, size_t n);
 bool sgi_claims(const uint8_t* d, size_t n);
 bool tga_claims(const uint8_t* d, size_t n);
@@ -92,6 +98,7 @@ void decode_tiff(const uint8_t* d, size_t n, RgbImage* out);
 void decode_pcx(const uint8_t* d, size_t n, RgbImage* out);
 void decode_dcx(const uint8_t* d, size_t n, RgbImage* out);
 void decode_dds(const uint8_t* d, size_t n, RgbImage* out);
+void decode_psd(const uint8_t* d, size_t n, RgbImage* out);
 void decode_qoi(const uint8_t* d, size_t n, RgbImage* out);
 void decode_sgi(const uint8_t* d, size_t n, RgbImage* out);
 void decode_tga(const uint8_t* d, size_t n, RgbImage* out);

@@ -1904,7 +1904,7 @@ class JpegDecoder {
 
 // The kinds the library decodes, in the order of PIL's Image.ID (TGA, which
 // has no magic, last); the numbers are ssr_image_kind's.
-enum Kind { kNone, kPng, kJpeg, kWebp, kGif, kTiff, kPcx, kDcx, kDds, kQoi, kSgi, kTga };
+enum Kind { kNone, kPng, kJpeg, kWebp, kGif, kTiff, kPcx, kDcx, kDds, kQoi, kSgi, kTga, kPsd };
 
 Kind image_kind(const uint8_t* data, size_t n) {
   if (n >= 8 && std::memcmp(data, kPngSignature, 8) == 0) return kPng;
@@ -1915,6 +1915,7 @@ Kind image_kind(const uint8_t* data, size_t n) {
   if (ssr::pcx_claims(data, n)) return kPcx;
   if (ssr::dcx_claims(data, n)) return kDcx;
   if (ssr::dds_claims(data, n)) return kDds;
+  if (ssr::psd_claims(data, n)) return kPsd;
   if (ssr::qoi_claims(data, n)) return kQoi;
   if (ssr::sgi_claims(data, n)) return kSgi;
   if (ssr::tga_claims(data, n)) return kTga;
@@ -1935,10 +1936,11 @@ void decode_bytes(const uint8_t* data, size_t n, int grey16, Image* out) {
     case kPcx: ssr::decode_pcx(data, n, out); break;
     case kDcx: ssr::decode_dcx(data, n, out); break;
     case kDds: ssr::decode_dds(data, n, out); break;
+    case kPsd: ssr::decode_psd(data, n, out); break;
     case kQoi: ssr::decode_qoi(data, n, out); break;
     case kSgi: ssr::decode_sgi(data, n, out); break;
     case kTga: ssr::decode_tga(data, n, out); break;
-    default: fail("not a PNG, JPEG, WebP, GIF or TIFF file, nor a DDS, TGA, QOI, PCX, DCX or SGI one");
+    default: fail("not a PNG, JPEG, WebP, GIF or TIFF file, nor a DDS, PSD, TGA, QOI, PCX, DCX or SGI one");
   }
 }
 

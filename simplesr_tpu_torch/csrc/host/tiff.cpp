@@ -574,6 +574,10 @@ void decode_ycbcr(const Reader& r, const uint8_t* d, uint32_t width, uint32_t he
 
 }  // namespace
 
+void pil_lab_to_rgb(uint8_t l, uint8_t a, uint8_t b, uint8_t* rgb) {
+  LabToSrgb::get().convert(l, a ^ 128, b ^ 128, rgb);
+}
+
 bool is_tiff(const uint8_t* d, size_t n) {
   if (n < 4) return false;
   return (d[0] == 'I' && d[1] == 'I' && (d[2] == 42 || d[2] == 43) && d[3] == 0) ||

@@ -1,13 +1,17 @@
 // WebP decoder of the port: the RIFF container, VP8 (lossy) and VP8L
-// (lossless), to RGB as PIL 12.1 gives a still WebP through libwebp 1.6's
+// (lossless), to RGB as PIL 12.1 gives a WebP through libwebp 1.6's
 // demuxer and animation decoder (RGBA output, alpha then dropped by
-// convert("RGB")).
+// convert("RGB")): a still image, or an animation's first frame.
 //
 //   - The container is checked as WebPDemux checks it: the RIFF size, chunk
-//     sizes and padding inside it, VP8X first with only its defined flags,
-//     one image (an ALPH chunk, then VP8 or VP8L) whose size is the canvas.
-//     ICCP, EXIF, XMP and unknown chunks are skipped. An animation (the VP8X
-//     animation flag, ANIM or ANMF) is refused by name.
+//     sizes and padding inside it, VP8X first with only its defined flags.
+//     A still image is one image (an ALPH chunk, then VP8 or VP8L) whose
+//     size is the canvas. An animation (the VP8X animation flag) has ANIM,
+//     then ANMF frames, each an optional ALPH and one VP8 or VP8L at an
+//     offset inside the canvas; every frame is parsed and checked, the
+//     first is decoded onto a transparent black canvas at its offset, as
+//     WebPAnimDecoder gives it (frame 1 is a key frame: no background colour
+//     and no blending). ICCP, EXIF, XMP and unknown chunks are skipped.
 //   - VP8 follows RFC 6386 as libwebp decodes it: the boolean decoder,
 //     segments, quantisers, intra prediction into a work buffer with
 //     libwebp's borders (127 above, 129 to the left, the top-right of the
@@ -20,8 +24,9 @@
 //     predictor, cross-colour, subtract-green and colour-indexing transforms
 //     (pixel bundling included), and meta prefix codes.
 //   - The alpha plane is not kept, but an ALPH chunk that libwebp would use
-//     (the VP8X alpha flag set) is decoded to check it, since libwebp fails
-//     the whole image when its alpha fails.
+//     (a still image's with the VP8X alpha flag set, any animation frame's)
+//     is decoded to check it, since libwebp fails the whole image when its
+//     alpha fails.
 //
 // libwebp fails a file that reads past the end of a partition or of the
 // lossless stream; so does this decoder.
@@ -1968,6 +1973,124 @@ struct Chunk {
   size_t padded;   // the payload and its pad byte
 };
 
+// The chunk at `at`, checked as the demuxer checks it: a whole header, and a
+// payload with its padding inside the RIFF that ends at `end`.
+Chunk read_chunk(const uint8_t* d, size_t at, size_t end, std::string* tag) {
+  if (end - at < 8) fail("truncated chunk header");
+  const uint32_t size = le32(d + at + 4);
+  if (size > 0xfffffff6u) fail("chunk size too large");
+  const size_t padded = size_t(size) + (size & 1);
+  if (padded > end - at - 8) fail("chunk extends past the RIFF");
+  tag->assign(reinterpret_cast<const char*>(d + at), 4);
+  return Chunk{at, size, padded};
+}
+
+// A VP8 or VP8L image's size from its header (WebPGetFeatures), failing as
+// the demuxer fails a frame whose features it cannot read.
+void image_size(const uint8_t* d, const Chunk& image, bool lossless, int* w, int* h) {
+  const uint8_t* payload = d + image.offset + 8;
+  const bool ok = lossless ? Vp8lDecoder::info(payload, image.padded, w, h)
+                           : Vp8Decoder::info(payload, image.padded, image.size, w, h);
+  if (!ok) fail(lossless ? "bad VP8L header" : "bad VP8 frame header");
+}
+
+// One image as libwebp decodes it: the VP8 or VP8L payload and its pad byte;
+// with an ALPH chunk beside a VP8 image, its alpha is decoded to check it,
+// since libwebp fails the image when its alpha fails.
+void decode_image(const uint8_t* d, const Chunk& image, bool lossless, const Chunk* alph,
+                  RgbImage* out) {
+  int w = 0, h = 0;
+  image_size(d, image, lossless, &w, &h);
+  check_image_pixels(kFmt, uint64_t(w), uint64_t(h));
+  const uint8_t* payload = d + image.offset + 8;
+  if (lossless) {
+    Vp8lDecoder(payload, image.padded).decode(out);
+    return;
+  }
+  if (alph) {
+    const uint8_t* a = d + alph->offset + 8;
+    const size_t an = alph->size;
+    if (an <= 1) fail("ALPH chunk too small");
+    const int method = a[0] & 3, pre = (a[0] >> 4) & 3, rsrv = (a[0] >> 6) & 3;
+    if (method > 1 || pre > 1 || rsrv != 0) fail("bad ALPH header");
+    if (method == 0) {
+      if (an - 1 < size_t(w) * h) fail("truncated ALPH data");
+    } else {
+      Vp8lDecoder(a + 1, an - 1).decode_alpha(w, h);
+    }
+  }
+  Vp8Decoder(payload, image.padded, image.size).decode(out);
+}
+
+// An animation's frames as WebPDemux parses them, from the chunk after VP8X
+// on: ANIM before the first ANMF; in each ANMF, after its 16-byte header
+// (offset / 2, size - 1, duration, flags), an optional ALPH then one VP8 or
+// VP8L chunk, read as the demuxer reads them (up to the first other chunk,
+// where parsing of the file goes on); no image chunk outside an ANMF. Each
+// frame, at its image's size, must lie inside the canvas.
+struct Frame {
+  int x = 0, y = 0, w = 0, h = 0;
+  Chunk image{}, alph{};
+  bool lossless = false, has_alph = false;
+};
+
+std::vector<Frame> animation_frames(const uint8_t* d, size_t at, size_t end, int canvas_w,
+                                    int canvas_h) {
+  std::vector<Frame> frames;
+  bool anim = false;
+  while (at < end) {
+    std::string tag;
+    const Chunk c = read_chunk(d, at, end, &tag);
+    if (tag == "ANIM") {
+      if (c.padded < 6) fail("ANIM chunk too small");
+      anim = true;
+    } else if (tag == "ANMF") {
+      if (!anim) fail("ANMF chunk before the ANIM chunk");
+      if (c.padded < 16) fail("ANMF chunk too small");
+      const uint8_t* p = d + at + 8;
+      Frame f;
+      f.x = 2 * int(le24(p));
+      f.y = 2 * int(le24(p + 3));
+      if (uint64_t(le24(p + 6) + 1) * (le24(p + 9) + 1) >= (uint64_t(1) << 32))
+        fail("ANMF frame too large");
+      const size_t first = at + 8 + 16;
+      size_t sub = first;
+      bool image = false;
+      while (sub < end) {
+        std::string sub_tag;
+        const Chunk s = read_chunk(d, sub, end, &sub_tag);
+        if (sub_tag == "ALPH" && !f.has_alph) {
+          if (image) fail("ALPH chunk after its frame's image");
+          f.alph = s;
+          f.has_alph = true;
+        } else if ((sub_tag == "VP8 " || sub_tag == "VP8L") && !image) {
+          f.lossless = sub_tag == "VP8L";
+          if (f.lossless && f.has_alph) fail("ALPH chunk before a VP8L image");
+          f.image = s;
+          image_size(d, s, f.lossless, &f.w, &f.h);
+          image = true;
+        } else {
+          break;  // the frame ends here; the file's chunks go on from it
+        }
+        sub += 8 + s.padded;
+      }
+      if (sub - first > c.padded - 16) fail("frame data extends past its ANMF chunk");
+      if (!image) fail("ANMF frame without an image");
+      if (f.x + f.w > canvas_w || f.y + f.h > canvas_h) fail("frame outside the canvas");
+      frames.push_back(f);
+      at = sub;
+      continue;
+    } else if (tag == "ALPH" || tag == "VP8 " || tag == "VP8L") {
+      fail("image chunk outside an ANMF chunk in an animation");
+    } else if (tag == "VP8X") {
+      fail("misplaced VP8X chunk");
+    }
+    at += 8 + c.padded;  // ICCP, EXIF, XMP and unknown chunks
+  }
+  if (frames.empty()) fail("animation without frames");
+  return frames;
+}
+
 }  // namespace
 
 bool is_webp(const uint8_t* d, size_t n) {
@@ -1981,90 +2104,83 @@ void decode_webp(const uint8_t* d, size_t n, RgbImage* out) {
   if (riff > 0xfffffff6u) fail("RIFF size too large");
   if (size_t(riff) + 8 > n) fail("truncated file (RIFF size exceeds the data)");
   const size_t end = size_t(riff) + 8;  // bytes past the RIFF are ignored
-  // the chunks of the file, each inside the RIFF with its padding
-  std::vector<std::pair<std::string, Chunk>> chunks;
-  for (size_t at = 12; at < end;) {
-    if (end - at < 8) fail("truncated chunk header");
-    const uint32_t size = le32(d + at + 4);
-    if (size > 0xfffffff6u) fail("chunk size too large");
-    const size_t padded = size_t(size) + (size & 1);
-    if (padded > end - at - 8) fail("chunk extends past the RIFF");
-    chunks.push_back({std::string(reinterpret_cast<const char*>(d + at), 4),
-                      Chunk{at, size, padded}});
-    at += 8 + padded;
-  }
-  if (chunks.empty()) fail("no chunks");
+  if (end == 12) fail("no chunks");
+  std::string tag;
+  const Chunk head = read_chunk(d, 12, end, &tag);
   int canvas_w = 0, canvas_h = 0;
   bool extended = false, alpha_flag = false;
-  size_t first = 0;
-  if (chunks[0].first == "VP8X") {
-    const Chunk& c = chunks[0].second;
-    if (c.size < 10) fail("VP8X chunk too small");
-    const uint8_t* p = d + c.offset + 8;
+  size_t at = 12;
+  if (tag == "VP8X") {
+    if (head.size < 10) fail("VP8X chunk too small");
+    const uint8_t* p = d + head.offset + 8;
     const uint8_t flags = p[0];
-    if (flags & 0x02) fail("animated WebP is not supported (" + std::string(kFormatsItem) + ")");
     if (flags & ~0x3e) fail("reserved VP8X flags are set");
     alpha_flag = flags & 0x10;
     canvas_w = int(le24(p + 4)) + 1;
     canvas_h = int(le24(p + 7)) + 1;
     if (uint64_t(canvas_w) * uint64_t(canvas_h) >= (uint64_t(1) << 32)) fail("canvas too large");
     extended = true;
-    first = 1;
-  }
-  // one image: VP8 or VP8L, VP8 with an ALPH chunk right before it (used
-  // only with the alpha flag); other chunks may lie around them
-  const Chunk* alph = nullptr;
-  const Chunk* image = nullptr;
-  bool lossless = false;
-  for (size_t i = first; i < chunks.size(); ++i) {
-    const std::string& tag = chunks[i].first;
-    const Chunk& c = chunks[i].second;
-    if (tag == "ANIM" || tag == "ANMF")
-      fail("animated WebP is not supported (" + std::string(kFormatsItem) + ")");
-    if (tag == "VP8X") fail("misplaced VP8X chunk");
-    if (tag == "ALPH" || tag == "VP8 " || tag == "VP8L") {
-      if (image) fail("more than one image");
-      if (!extended && i != first) fail("misplaced image chunk");
-      if (tag == "ALPH") {  // the demuxer takes it only right before its image
-        if (!extended) fail("ALPH chunk without VP8X");
-        if (alph || i + 1 == chunks.size() || chunks[i + 1].first != "VP8 ")
-          fail("misplaced ALPH chunk");
-        alph = &c;
-        continue;
-      }
-      if (tag == "VP8L" && alph) fail("ALPH chunk before a VP8L image");
-      image = &c;
-      lossless = tag == "VP8L";
+    at = 12 + 8 + head.padded;
+    if (flags & 0x02) {
+      // WebPAnimDecoder's first frame: a key frame, so the canvas starts
+      // transparent black (neither the ANIM background nor blending
+      // applies) and the frame is decoded at its offset; alpha is dropped.
+      const std::vector<Frame> frames = animation_frames(d, at, end, canvas_w, canvas_h);
+      check_image_pixels(kFmt, uint64_t(canvas_w), uint64_t(canvas_h));
+      const Frame& f = frames[0];
+      RgbImage frame;
+      decode_image(d, f.image, f.lossless, f.has_alph ? &f.alph : nullptr, &frame);
+      out->w = canvas_w;
+      out->h = canvas_h;
+      out->rgb.assign(size_t(canvas_w) * canvas_h * 3, 0);
+      for (int y = 0; y < frame.h; ++y)
+        std::memcpy(out->rgb.data() + (size_t(f.y + y) * canvas_w + f.x) * 3,
+                    frame.rgb.data() + size_t(y) * frame.w * 3, size_t(frame.w) * 3);
+      return;
     }
   }
-  if (!image) fail("no image data");
-  // the frame as libwebp decodes it: the payload and its pad byte
-  const uint8_t* payload = d + image->offset + 8;
-  const size_t avail = image->padded;
+  // a still image: one image (an ALPH chunk, then VP8 or VP8L) whose size is
+  // the canvas; ALPH is used only with the alpha flag. An ANIM chunk may
+  // follow the image; an ANMF needs an ANIM before it and is not a frame.
+  Chunk alph{}, image{};
+  bool have_alph = false, have_image = false, lossless = false, anim = false;
+  for (bool first = true; at < end; first = false) {
+    const Chunk c = read_chunk(d, at, end, &tag);
+    at += 8 + c.padded;
+    if (tag == "ANIM") {
+      if (c.padded < 6) fail("ANIM chunk too small");
+      anim = true;
+      continue;
+    }
+    if (tag == "ANMF") {
+      if (!anim) fail("ANMF chunk before the ANIM chunk");
+      continue;
+    }
+    if (tag == "VP8X") fail("misplaced VP8X chunk");
+    if (tag != "ALPH" && tag != "VP8 " && tag != "VP8L") continue;
+    if (have_image) fail("more than one image");
+    if (anim) fail("image chunk after an ANIM chunk in a still WebP");
+    if (!extended && !first) fail("misplaced image chunk");
+    if (tag == "ALPH") {  // the demuxer takes it only right before its image
+      if (!extended) fail("ALPH chunk without VP8X");
+      std::string next;
+      if (have_alph || at >= end || (read_chunk(d, at, end, &next), next != "VP8 "))
+        fail("misplaced ALPH chunk");
+      alph = c;
+      have_alph = true;
+      continue;
+    }
+    if (tag == "VP8L" && have_alph) fail("ALPH chunk before a VP8L image");
+    image = c;
+    have_image = true;
+    lossless = tag == "VP8L";
+  }
+  if (!have_image) fail("no image data");
   int w = 0, h = 0;
-  const bool ok = lossless ? Vp8lDecoder::info(payload, avail, &w, &h)
-                           : Vp8Decoder::info(payload, avail, image->size, &w, &h);
-  if (!ok) fail(lossless ? "bad VP8L header" : "bad VP8 frame header");
+  image_size(d, image, lossless, &w, &h);
   if (extended && (w != canvas_w || h != canvas_h))
     fail("the image's size differs from the canvas");
-  check_image_pixels(kFmt, uint64_t(w), uint64_t(h));
-  if (lossless) {
-    Vp8lDecoder(payload, avail).decode(out);
-    return;
-  }
-  if (alph && alpha_flag) {  // libwebp fails the image if its alpha fails
-    const uint8_t* a = d + alph->offset + 8;
-    const size_t an = alph->size;
-    if (an <= 1) fail("ALPH chunk too small");
-    const int method = a[0] & 3, pre = (a[0] >> 4) & 3, rsrv = (a[0] >> 6) & 3;
-    if (method > 1 || pre > 1 || rsrv != 0) fail("bad ALPH header");
-    if (method == 0) {
-      if (an - 1 < size_t(w) * h) fail("truncated ALPH data");
-    } else {
-      Vp8lDecoder(a + 1, an - 1).decode_alpha(w, h);
-    }
-  }
-  Vp8Decoder(payload, avail, image->size).decode(out);
+  decode_image(d, image, lossless, have_alph && alpha_flag ? &alph : nullptr, out);
 }
 
 }  // namespace ssr

@@ -16,8 +16,8 @@ them. JPEG, PNG and ALPHABITFIELDS compressions raise ``ValueError``, as
 PIL 12.1 refuses them too ("Unsupported BMP compression"); so does a file
 that PIL refuses or that ends early (PIL also refuses an RLE bitmap that
 ends before its last pixel). ``decode_dib`` reads the same bitmaps from a
-header anywhere in a buffer, as the ICO and CUR frames hold them
-(``data/ico.py``). Host work only.
+header anywhere in a buffer, as a DIB file holds them at its start and the
+ICO and CUR frames hold them (``data/ico.py``). Host work only.
 """
 
 import numpy as np
@@ -138,6 +138,12 @@ def decode_bmp(data, name="image"):
     if data[:2] != BMP_MAGIC or len(data) < 18:
         raise ValueError(f"{name}: not a BMP file")
     return decode_dib(data, 14, _u32(data, 10), name)
+
+
+def is_dib(data):
+    """Whether PIL's DIB plugin takes ``data``: a BMP header size in its
+    first four bytes (a BMP file without its 14-byte file header)."""
+    return len(data) >= 4 and _u32(data, 0) in _HEADER_SIZES
 
 
 def dib_pixel_offset(data, at):

@@ -1,20 +1,23 @@
-"""Image input in PIL's order of formats: PNG, JPEG, BMP, WebP, GIF, TIFF,
-netpbm, DDS, TGA, ICO, CUR, QOI, PCX, DCX and SGI files and bodies to RGB,
-as the JAX package reads them through PIL's ``convert("RGB")`` (``read_img``,
-the serving daemon and gateway) or its native loader (the training
-pipeline).
+"""Image input in PIL's order of formats: PNG, JPEG, BMP, DIB, WebP, GIF,
+TIFF, netpbm, PSD, DDS, TGA, ICO, CUR, QOI, PCX, DCX and SGI files and
+bodies to RGB, as the JAX package reads them through PIL's
+``convert("RGB")`` (``read_img``, the serving daemon and gateway) or its
+native loader (the training pipeline).
 
-PNG, JPEG, WebP, GIF, TIFF, DDS, TGA, QOI, PCX, DCX and SGI decode in the
-port's C++ decoders (``native_loader``: ``csrc/host/loader.cpp``,
-``webp.cpp``, ``gif.cpp``, ``tiff.cpp``, ``dds.cpp``, ``tga.cpp``,
-``qoi.cpp``, ``pcx.cpp``, ``sgi.cpp``); with ``native=False`` a PNG decodes
-in Python (``data/png.py``), the plain version. BMP (uncompressed,
-bitfields, RLE8 and RLE4), netpbm (P1 to P6) and ICO and CUR (their frames
-through the PNG and DIB decoders) decode in numpy (``data/bmp.py``,
-``data/pnm.py``, ``data/ico.py``). Each reads the image PIL opens: a still
-WebP (lossy or lossless, alpha dropped), frame 0 of a GIF, the first IFD of
-a TIFF, the first surface of a DDS, the frame PIL picks from an icon's
-directory, the first page of a DCX.
+PNG, JPEG, WebP, GIF, TIFF, PSD, DDS, TGA, QOI, PCX, DCX and SGI decode in
+the port's C++ decoders (``native_loader``: ``csrc/host/loader.cpp``,
+``webp.cpp``, ``gif.cpp``, ``tiff.cpp``, ``psd.cpp``, ``dds.cpp``,
+``tga.cpp``, ``qoi.cpp``, ``pcx.cpp``, ``sgi.cpp``); with ``native=False`` a
+PNG decodes in Python (``data/png.py``), the plain version. BMP and DIB
+(uncompressed, bitfields, RLE8 and RLE4), netpbm (P1 to P6) and ICO and
+CUR (their frames through the PNG and DIB decoders) decode in numpy
+(``data/bmp.py``, ``data/pnm.py``, ``data/ico.py``). Each reads the image
+PIL opens: a still WebP or an animated one's first frame on its canvas
+(lossy or lossless, alpha dropped), frame 0 of a GIF, the first IFD of a
+TIFF, a PSD's merged image, the first surface of a DDS, the frame PIL picks
+from an icon's directory, the first page of a DCX. A DIB is a BMP without
+its 14-byte file header, taken where PIL's DIB plugin takes it: a header
+size that BMP knows in the first four bytes.
 
 ``image_kind`` picks the kind as ``Image.open`` does: the plugins in the
 order of ``Image.ID``, each taking a file its open accepts, the next tried
@@ -22,15 +25,16 @@ where an open rejects it as not its format. TGA has no magic and comes
 last, so an icon whose directory is empty can read as a TGA, as in PIL.
 ``grey16`` picks how 16-bit grey PNGs read, the one mode where the JAX
 package's two decoders differ: "pil" (clip to 255) or "loader" (the high
-byte). Anything else (an animated WebP, a format the port does not read)
-raises ``ValueError`` naming it and ROADMAP.md's item.
+byte). Anything else (a PSB, a 16-bit PSD, a format the port does not
+read) raises ``ValueError`` naming it and ROADMAP.md's item.
 """
 
 import struct
 
 import numpy as np
 
-from simplesr_tpu_torch.data.bmp import BMP_MAGIC, UNSUPPORTED_ITEM, decode_bmp
+from simplesr_tpu_torch.data.bmp import (BMP_MAGIC, UNSUPPORTED_ITEM, decode_bmp, decode_dib,
+                                         is_dib)
 from simplesr_tpu_torch.data.ico import cur_claims, decode_cur, decode_ico, ico_claims
 from simplesr_tpu_torch.data.native_loader import decode_bytes, native_kind
 from simplesr_tpu_torch.data.png import _SIGNATURE as PNG_MAGIC
@@ -42,7 +46,7 @@ GIF_MAGICS = (b"GIF87a", b"GIF89a")
 TIFF_MAGICS = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")  # classic, then BigTIFF
 MPEG_MAGIC = b"\0\0\1\xb3"
 # the kinds that decode in numpy: the C++ library (NativeLoader) reads the rest
-PYTHON_KINDS = ("bmp", "pnm", "ico", "cur", "gbr", "mpeg", "spider")
+PYTHON_KINDS = ("bmp", "dib", "pnm", "ico", "cur", "gbr", "mpeg", "spider")
 # formats PIL tries before ICO, QOI and TGA whose tests can take their files:
 # named and refused, so that those never read as a kind PIL does not give
 REFUSED_KINDS = {"gbr": "GBR (a GIMP brush)",
@@ -102,8 +106,8 @@ def _is_spider(data):
 
 
 def image_kind(data):
-    """"png", "jpeg", "bmp", "webp", "gif", "tiff", "pnm", "cur", "pcx",
-    "dcx", "dds", "ico", "qoi", "sgi", "tga", a refused kind of
+    """"png", "jpeg", "bmp", "dib", "webp", "gif", "tiff", "pnm", "cur",
+    "pcx", "dcx", "dds", "ico", "psd", "qoi", "sgi", "tga", a refused kind of
     ``REFUSED_KINDS``, or None: the format PIL's ``Image.open`` reads
     ``data`` as (``HEAD_BYTES`` settle it but for ICO, CUR and DCX, whose
     directories may reach further)."""
@@ -114,6 +118,8 @@ def image_kind(data):
         return "jpeg"
     if data[:2] == BMP_MAGIC:
         return "bmp"
+    if is_dib(data):
+        return "dib"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "webp"
     if data[:6] in GIF_MAGICS:
@@ -133,7 +139,7 @@ def image_kind(data):
         return "ico"
     if _is_mpeg(data):
         return "mpeg"
-    if native in ("qoi", "sgi"):
+    if native in ("psd", "qoi", "sgi"):
         return native
     if _is_spider(data):
         return "spider"
@@ -146,12 +152,14 @@ def decode_image(data, name="image", native=True, grey16="pil"):
     kind = image_kind(data)
     if kind is None:
         raise ValueError(f"{name}: not a PNG, JPEG, BMP, WebP, GIF, TIFF or netpbm file, nor a "
-                         f"DDS, TGA, ICO, CUR, QOI, PCX, DCX or SGI one (the other formats PIL "
-                         f"opens are listed in {UNSUPPORTED_ITEM})")
+                         f"DIB, PSD, DDS, TGA, ICO, CUR, QOI, PCX, DCX or SGI one (the other "
+                         f"formats PIL opens are listed in {UNSUPPORTED_ITEM})")
     if kind in REFUSED_KINDS:
         raise ValueError(f"{name}: {REFUSED_KINDS[kind]} is not supported ({UNSUPPORTED_ITEM})")
     if kind == "bmp":
         return decode_bmp(data, name)
+    if kind == "dib":
+        return decode_dib(data, 0, 0, name)
     if kind == "pnm":
         return decode_pnm(data, name)
     if kind == "cur":

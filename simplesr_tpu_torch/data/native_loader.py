@@ -4,8 +4,8 @@ as simplesr_tpu.data.native_loader binds the JAX package's.
 The library is built at first use with ``g++`` (``$CXX``, else ``g++`` on
 ``PATH``) from ``loader.cpp``, the JPEG encoder ``jpeg_encode.cpp`` and the
 decoders of the other formats (``webp.cpp``, ``gif.cpp``, ``tiff.cpp``,
-``dds.cpp``, ``tga.cpp``, ``qoi.cpp``, ``pcx.cpp``, ``sgi.cpp``, with their
-header ``formats.h``), and linked against zlib; nothing of CUDA or
+``dds.cpp``, ``psd.cpp``, ``tga.cpp``, ``qoi.cpp``, ``pcx.cpp``, ``sgi.cpp``,
+with their header ``formats.h``), and linked against zlib; nothing of CUDA or
 PyTorch is compiled. Each source compiles in a process of its own, all at
 once, before one link. It lives under the git-ignored
 ``simplesr_tpu_torch/_build/``, named by a hash of every source and header,
@@ -53,7 +53,8 @@ _HOST = _PACKAGE / "csrc" / "host"
 SOURCE = _HOST / "loader.cpp"
 ENCODER_SOURCE = _HOST / "jpeg_encode.cpp"
 SOURCES = (SOURCE, ENCODER_SOURCE) + tuple(
-    _HOST / f"{name}.cpp" for name in ("webp", "gif", "tiff", "dds", "tga", "qoi", "pcx", "sgi"))
+    _HOST / f"{name}.cpp" for name in ("webp", "gif", "tiff", "dds", "psd", "tga", "qoi", "pcx",
+                                       "sgi"))
 HEADERS = (_HOST / "formats.h",)
 BUILD_DIR = _PACKAGE / "_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
@@ -186,7 +187,7 @@ def _last_error(lib):
 
 # ssr_image_kind's numbers (loader.cpp's Kind)
 NATIVE_KINDS = (None, "png", "jpeg", "webp", "gif", "tiff", "pcx", "dcx", "dds", "qoi", "sgi",
-                "tga")
+                "tga", "psd")
 
 
 def native_kind(data):
@@ -197,7 +198,7 @@ def native_kind(data):
 
 
 def decode_bytes(data, name="image", grey16="pil"):
-    """PNG, JPEG, WebP, GIF, TIFF, PCX, DCX, DDS, QOI, SGI or TGA bytes ->
+    """PNG, JPEG, WebP, GIF, TIFF, PCX, DCX, DDS, PSD, QOI, SGI or TGA bytes ->
     uint8 RGB (H, W, 3). A body the decoders refuse raises ``ValueError``
     naming ``name`` and the reason."""
     lib = library()

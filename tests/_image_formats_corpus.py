@@ -1,15 +1,18 @@
 """Writes data/corpus/image_formats/ and its MANIFEST.json: the WebP, GIF,
 TIFF, netpbm and RLE BMP fixtures that the port's decoders are held to, and
 the JPEG processes beside baseline (arithmetic coding, lossless, block
-smoothing); and data/corpus/texture_formats/ and its MANIFEST.json: the
-DDS, TGA, ICO, CUR, QOI, PCX, DCX and SGI fixtures.
+smoothing); data/corpus/texture_formats/ and its MANIFEST.json: the
+DDS, TGA, ICO, CUR, QOI, PCX, DCX and SGI fixtures; and
+data/corpus/psd_dib_anim/ and its MANIFEST.json: animated WebP, PSD and
+DIB.
 
     python tests/_image_formats_corpus.py
 
 Each file is a crop of data/corpus/gallery/gt_1.png (or samples drawn from
 a numpy seed) written by Pillow or by a writer under tests/ (_webp_writer,
 _gif_writer, _tiff_writer, _bmp_writer, _jpeg_writer, _dds_writer,
-_tga_writer, _ico_writer, _sgi_writer; netpbm is written here). The
+_tga_writer, _ico_writer, _sgi_writer, _psd_writer; netpbm is written
+here; a DIB is a BMP without its 14-byte file header). The
 manifest holds each file's writer and parameters, its shape and the SHA-256
 of Pillow's ``np.asarray(Image.open(f).convert("RGB"))`` bytes; entries with
 ``refused`` are files the port refuses by name. Regenerate only with the
@@ -37,20 +40,22 @@ from _gif_writer import write_gif  # noqa: E402
 from _ico_writer import dib, pcx_planar, write_dcx, write_icon  # noqa: E402
 from _jpeg_writer import (drop_scans, write_jpeg, write_jpeg_arith,  # noqa: E402
                           write_jpeg_lossless)
+from _psd_writer import write_psd  # noqa: E402
 from _sgi_writer import write_sgi  # noqa: E402
 from _tga_writer import write_tga  # noqa: E402
 from _tiff_writer import jpeg_chunks, write_tiff  # noqa: E402
-from _webp_writer import write_webp  # noqa: E402
+from _webp_writer import animation, anmf, write_webp  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "data/corpus/image_formats"
 TEXTURES = ROOT / "data/corpus/texture_formats"
+LAYERED = ROOT / "data/corpus/psd_dib_anim"
 SOURCE = "data/corpus/gallery/gt_1.png"
 GALLERY = np.asarray(Image.open(ROOT / SOURCE).convert("RGB"))
 KINDS = {".webp": "webp", ".gif": "gif", ".tif": "tiff", ".pbm": "pnm", ".pgm": "pnm",
          ".ppm": "pnm", ".bmp": "bmp", ".jpg": "jpeg", ".dds": "dds", ".tga": "tga",
          ".ico": "ico", ".cur": "cur", ".qoi": "qoi", ".pcx": "pcx", ".dcx": "dcx",
-         ".sgi": "sgi"}
+         ".sgi": "sgi", ".psd": "psd", ".dib": "dib"}
 # the progressive scan script of libjpeg's jpeg_simple_progression for YCbCr
 # (components, Ss, Se, Ah, Al), as Pillow writes it
 SIMPLE_PROGRESSION = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
@@ -79,6 +84,15 @@ def rgba(rgb, seed):
 def planes(rgb, mode="YCbCr"):
     img = np.asarray(Image.fromarray(rgb).convert(mode))
     return [img[:, :, i] for i in range(img.shape[2])] if img.ndim == 3 else [img]
+
+
+def psd_cmyk(rgb):
+    """An image's CMYK planes as a PSD stores them, ink inverted (0 is full
+    ink): k = 255 - max(rgb), c, m, y = 255 - rgb - k, as the TIFF
+    fixtures take them."""
+    k = 255 - rgb.max(axis=2).astype(np.int64)
+    cmyk = np.dstack([255 - rgb.astype(np.int64) - k[:, :, None], k]).clip(0, 255)
+    return [(255 - cmyk[:, :, i]).astype(np.uint8) for i in range(4)]
 
 
 def lab_bytes(rgb):
@@ -379,8 +393,7 @@ def fixtures():
                    filter_sharpness=5, partitions=3, segments=2)
     frames = [Image.fromarray(small), Image.fromarray(small[::-1].copy())]
     yield "webp_animated_17x33.webp", "PIL", {"crop": [40, 60, 17, 33], "frames": 2}, \
-        pil_save(frames[0], "WEBP", save_all=True, append_images=frames[1:], quality=50), \
-        "animated WebP"
+        pil_save(frames[0], "WEBP", save_all=True, append_images=frames[1:], quality=50)
 
     pal = rng.integers(0, 256, (256, 3))
     grey = np.repeat(np.arange(256)[:, None], 3, 1)
@@ -724,6 +737,76 @@ def texture_fixtures(rng):
         write_sgi(tile, 1, rle=True)
 
 
+def psd_dib_anim_fixtures(rng):
+    """The animated WebP, PSD and DIB fixtures, as ``fixtures`` yields them."""
+    small, tile = crop(40, 60, 17, 33), crop(100, 200, 96, 128)
+    c, t = {"crop": [40, 60, 17, 33]}, {"crop": [100, 200, 96, 128], "timing": True}
+    frames = [Image.fromarray(small), Image.fromarray(small[::-1].copy()),
+              Image.fromarray(255 - small)]
+    yield "webp_anim_lossy_3_frames_17x33.webp", "PIL", dict(c, frames=3, quality=50), \
+        pil_save(frames[0], "WEBP", save_all=True, append_images=frames[1:], quality=50)
+    border = np.dstack([small, np.full(small.shape[:2], 200, np.uint8)])
+    border[:3, :, 3] = border[:, :4, 3] = 0  # Pillow's encoder crops the frame: an offset
+    yield "webp_anim_lossless_alpha_offset_17x33.webp", "PIL", \
+        dict(c, frames=2, lossless=True, transparent=[3, 4]), \
+        pil_save(Image.fromarray(border), "WEBP", save_all=True, lossless=True,
+                 append_images=[Image.fromarray(small)])
+    part = Image.fromarray(small[:9, :14])
+    yield "webp_anim_built_offset_no_blend_40x30.webp", "tests/_webp_writer.py", \
+        {"crop": [40, 60, 9, 14], "canvas": [40, 30], "offset": [6, 4], "flags": 3,
+         "quality": 60, "frames": 2}, \
+        animation((40, 30), anmf(6, 4, part, 3, quality=60), anmf(0, 0, part, lossless=True))
+
+    rgb = [small[:, :, i] for i in range(3)]
+    q = Image.fromarray(small).quantize(64)
+    pal = np.zeros((256, 3), np.uint8)
+    pal[:64] = np.asarray(q.getpalette()[:192]).reshape(64, 3)
+    red = small[:, :, 0]
+    for name, chans, mode, kw in (
+            ("bitmap", [red > np.median(red)], 0, dict(depth=1)),
+            ("grey", rgb[1:2], 1, {}),
+            ("indexed", [np.asarray(q)], 2, dict(color_data=pal.T.tobytes())),
+            ("rgb", rgb, 3, {}),
+            ("rgba", rgb + [small[:, :, 0] // 2], 3, {}),
+            ("cmyk", psd_cmyk(small), 4, {}),
+            ("multichannel", rgb, 7, {}),
+            ("duotone", rgb[2:], 8, dict(color_data=bytes(range(40)))),
+            ("lab", planes(small, "LAB"), 9, {}),
+            ("rgb_resources_layers", rgb, 3, dict(
+                resources=[(1039, b"icc", b"\1\2\3"), (1005, b"", bytes(16))],
+                layer_data=struct.pack(">I", 8) + bytes(8)))):
+        for compression, label in ((0, "raw"), (1, "packbits")):
+            yield f"psd_{name}_{label}_17x33.psd", "tests/_psd_writer.py", \
+                dict(c, mode=mode, channels=len(chans), compression=compression,
+                     **{k: v for k, v in kw.items() if k == "depth"}), \
+                write_psd(chans, mode, compression=compression, **kw)
+    for name, kw, refused in (("psb", dict(version=2), "PSB"),
+                              ("rgb_16bit", dict(depth=16), "16-bit RGB"),
+                              ("rgb_zip", dict(compression=2), "ZIP compression")):
+        yield f"psd_{name}_stub.psd", "tests/_psd_writer.py", dict(c, **kw), \
+            write_psd([p[:2, :3] for p in rgb], 3, **kw), refused
+
+    yield "dib_rgb24_17x33.dib", "PIL", dict(c, cut=14), pil_save(Image.fromarray(small),
+                                                                  "BMP")[14:]
+    yield "dib_palette8_17x33.dib", "PIL", dict(c, quantize=64, cut=14), pil_save(q, "BMP")[14:]
+    idx = rng.integers(0, 6, (9, 14))
+    yield "dib_rle8_9x14.dib", "tests/_bmp_writer.py", {"seed": 2026, "cut": 14}, \
+        write_bmp_rle(14, 9, rng.integers(0, 256, (256, 3)), rle_encode(idx))[14:]
+
+    tile_img = Image.fromarray(tile)
+    yield "timing_webp_anim.webp", "PIL", dict(t, frames=2, quality=90), \
+        pil_save(tile_img, "WEBP", save_all=True, quality=90,
+                 append_images=[Image.fromarray(tile[::-1].copy())])
+    trgb = [tile[:, :, i] for i in range(3)]
+    yield "timing_psd_rgb_packbits.psd", "tests/_psd_writer.py", dict(t, mode=3, compression=1), \
+        write_psd(trgb, 3, compression=1)
+    yield "timing_psd_cmyk_raw.psd", "tests/_psd_writer.py", dict(t, mode=4, compression=0), \
+        write_psd(psd_cmyk(tile), 4)
+    yield "timing_psd_lab_packbits.psd", "tests/_psd_writer.py", dict(t, mode=9, compression=1), \
+        write_psd(planes(tile, "LAB"), 9, compression=1)
+    yield "timing_dib_rgb24.dib", "PIL", dict(t, cut=14), pil_save(tile_img, "BMP")[14:]
+
+
 def write_corpus(out, items, purpose, one_line_entries=False):
     out.mkdir(parents=True, exist_ok=True)
     entries = []
@@ -775,6 +858,13 @@ def main():
         "SGI decoders are held to PIL's convert('RGB') decode of each file "
         "(sha256_pil_rgb, of the uint8 HWC array's bytes); entries with 'refused' are "
         "variants that PIL refuses too, refused by the port by name.", one_line_entries=True)
+    write_corpus(
+        LAYERED, psd_dib_anim_fixtures(np.random.default_rng(2026)),
+        "Fixtures of animated WebP (the first frame on its canvas), PSD (the merged "
+        "image) and DIB: the port's decoders are held to PIL's convert('RGB') decode "
+        "of each file (sha256_pil_rgb, of the uint8 HWC array's bytes); entries with "
+        "'refused' are variants that PIL refuses too, refused by the port by name.",
+        one_line_entries=True)
 
 
 if __name__ == "__main__":

@@ -6,11 +6,18 @@ its decode stays the judge of the port's.
 The structs are libwebp's (encode.h, ABI 2.x) on x86-64; ``_check_layout``
 reads back the defaults that libwebp fills in, so that a different layout
 fails loudly instead of writing garbage.
+
+``animation`` builds an animated WebP by hand around the image chunks of
+still WebPs that Pillow writes (``image_chunks``), each frame an ``anmf``
+chunk at any offset, size field and blend and dispose bits: the layouts
+Pillow's encoder does not choose.
 """
 
 import ctypes
 import glob
+import io
 import os
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -106,3 +113,45 @@ def write_webp(rgb, quality=75, **settings):
     finally:
         lib.WebPPictureFree(pic)
         lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
+def chunk(tag, payload):
+    """A RIFF chunk: its tag, size, payload and pad byte."""
+    return tag + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def image_chunks(img, **save):
+    """The ALPH, VP8 or VP8L chunks of the still WebP that Pillow writes of
+    ``img`` with ``save``."""
+    buf = io.BytesIO()
+    img.save(buf, "WEBP", **save)
+    data, out, at = buf.getvalue(), b"", 12
+    while at < len(data):
+        size = struct.unpack("<I", data[at + 4:at + 8])[0]
+        if data[at:at + 4] in (b"ALPH", b"VP8 ", b"VP8L"):
+            out += data[at:at + 8 + size + (size & 1)]
+        at += 8 + size + (size & 1)
+    return out
+
+
+def anmf(x, y, img, flags=0, image=None, size=None, **save):
+    """An ANMF chunk: offset (x, y) (even), the frame's size (its image's, or
+    ``size``), 100 ms, the flags byte (1: dispose to the background, 2: do
+    not blend), then ``image`` or the chunks of ``img`` saved with ``save``."""
+    image = image_chunks(img, **save) if image is None else image
+    w, h = size or img.size
+    head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1, h - 1, 100))
+    return chunk(b"ANMF", head + bytes([flags]) + image)
+
+
+def animation(canvas, *chunks, vp8x_flags=0x12, anim=True):
+    """An animated WebP of a (width, height) canvas: VP8X with
+    ``vp8x_flags`` (animation and alpha by default), an ANIM chunk (a
+    background colour, endless loop) unless ``anim`` is false, and
+    ``chunks`` in order."""
+    w, h = canvas
+    vp8x = chunk(b"VP8X", bytes([vp8x_flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+                 + (h - 1).to_bytes(3, "little"))
+    body = b"WEBP" + vp8x + (chunk(b"ANIM", struct.pack("<IH", 0xFF2040C0, 0)) if anim
+                             else b"") + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body

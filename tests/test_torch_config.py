@@ -52,9 +52,11 @@ def _relative(conf):
 
 
 def _tree(root):
-    return sorted(os.path.relpath(os.path.join(d, x), root)
-                  for d, dirs, files in os.walk(root) for x in dirs + files
-                  if "events.out" not in x)
+    """The save dir's paths; a TensorBoard event file counts under its name
+    without the time and host."""
+    return sorted(os.path.relpath(os.path.join(d, "events.out.tfevents" if "tfevents" in x
+                                               else x), root)
+                  for d, dirs, files in os.walk(root) for x in dirs + files)
 
 
 @pytest.mark.parametrize("path", TRAINING, ids=lambda p: p.name)

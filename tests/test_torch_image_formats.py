@@ -209,14 +209,6 @@ def test_kinds_by_magic_bytes():
 
 # -------------------------------------------------------------- refusals
 
-def _webp_with_vp8x_flags(flags):
-    frame = _save(Image.fromarray(GALLERY[:8, :8]), "WEBP", quality=50)[12:]
-    vp8x = b"VP8X" + struct.pack("<I", 10) + bytes([flags, 0, 0, 0]) + \
-        (7).to_bytes(3, "little") * 2
-    body = b"WEBP" + vp8x + frame
-    return b"RIFF" + struct.pack("<I", len(body)) + body
-
-
 def _tiff_with(**tags):
     """An 8 x 4 grey TIFF, then each tag=value patched into its entry."""
     data = bytearray(write_tiff(np.zeros((4, 8), np.int64), 1, 8))
@@ -243,7 +235,6 @@ def _bmp_compressed(kind):
 
 
 REFUSALS = {
-    "animated WebP": lambda: _webp_with_vp8x_flags(0x02),
     "old-style JPEG": lambda: _tiff_with(compression=6),
     "CCITT": lambda: _tiff_with(compression=4),
     "16-bit CIELab": lambda: write_tiff(np.zeros((2, 3, 3), np.int64), 8, 16),
@@ -284,6 +275,9 @@ FORMERLY_REFUSED = {
     "BigTIFF": lambda: write_tiff(GALLERY[:5, :7].astype(np.int64), 2, 8, "lzw", bigtiff=True),
     "CMYK": lambda: write_tiff(np.dstack([GALLERY[:4, :8], GALLERY[:4, :8, :1]]), 5, 8),
     "CIELab": lambda: write_tiff(GALLERY[:4, :8].astype(np.int64), 8, 8),
+    "animated WebP": lambda: _save(Image.fromarray(GALLERY[:8, :8]), "WEBP", save_all=True,
+                                   append_images=[Image.fromarray(GALLERY[8:16, :8])],
+                                   quality=50),
 }
 
 

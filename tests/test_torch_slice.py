@@ -299,7 +299,11 @@ def test_png_interlaced_and_bad_input_raise(tmp_path):
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "simplesr_tpu", "msgpack", "PIL",
-             "yaml", "cv2", "tensorflow", "imageio", "ninja", "h5py", "tf_keras", "keras"}
+             "yaml", "cv2", "tensorflow", "imageio", "ninja", "h5py", "tf_keras", "keras",
+             "tensorboard", "tensorboardX"}
+# modules forbidden by their full name: torch's TensorBoard writer needs the
+# tensorboard package, which the GPU machine lacks
+FORBIDDEN_DOTTED = ("torch.utils.tensorboard",)
 
 
 def _imports(path):
@@ -308,6 +312,7 @@ def _imports(path):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+            yield from (f"{node.module}.{alias.name}" for alias in node.names)
 
 
 # the GAN family's and the serving surface's modules, each held to the rule
@@ -341,6 +346,8 @@ MEASURE_MODULES = ["tools/bench_timing.py", "tools/bench_trunk_kernel.py",
                    "tools/bench_serve.py", "tools/remat_study.py", "tools/train_roofline.py",
                    "tools/bf16_grad_study.py", "tools/host_assembly_profile.py",
                    "tools/watched_run.py"]
+# the TensorBoard event writer and reader, and the config that builds the writers
+TENSORBOARD_MODULES = ["utils/tensorboard.py", "config/config_util.py"]
 PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
                     "parallel/fsdp.py", "parallel/spatial.py", "parallel/tensor.py",
                     "parallel/pipeline.py"]
@@ -352,12 +359,15 @@ def test_port_imports_only_torch_numpy_and_stdlib():
     assert {ROOT / "simplesr_tpu_torch" / m
             for m in GAN_MODULES + SERVING_MODULES + TRAINING_SURFACE_MODULES
             + PARALLEL_MODULES + IMAGE_INPUT_MODULES + QUALITY_MODULES
-            + DENOISING_MODULES + IMAGE_FORMAT_MODULES + MEASURE_MODULES} <= set(files)
+            + DENOISING_MODULES + IMAGE_FORMAT_MODULES + MEASURE_MODULES
+            + TENSORBOARD_MODULES} <= set(files)
     allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "simplesr_tpu_torch"}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in FORBIDDEN and top in allowed, f"{path}: imports {name}"
+            assert not any(name == m or name.startswith(m + ".") for m in FORBIDDEN_DOTTED), \
+                f"{path}: imports {name}"
 
 
 def test_host_decoders_include_no_image_library():

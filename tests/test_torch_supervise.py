@@ -4,7 +4,8 @@ the preemption code, an exhausted restart budget, the ``--cmd`` hook), and
 one run end to end: the production recipe (``paired_train: 2`` as written),
 cut for the CPU, trained by ``tools.train --device cpu`` in a child that
 SIGKILLs itself once after its first epoch and finishes under the
-supervisor from its resume point."""
+supervisor from its resume point, its TensorBoard scalars written through
+the port's own event writer."""
 
 import json
 import sys
@@ -16,6 +17,7 @@ from simplesr_tpu.tools import supervise as jax_supervise
 from simplesr_tpu_torch.config import _yaml
 from simplesr_tpu_torch.data.png import read_png, write_png
 from simplesr_tpu_torch.tools import supervise
+from simplesr_tpu_torch.utils.tensorboard import event_files, read_scalars
 
 ROOT = Path(__file__).resolve().parents[1]
 GALLERY = str(ROOT / "data/corpus/gallery")
@@ -106,7 +108,6 @@ def test_end_to_end_crash_resume(tmp_path):
     wrapper.write_text(f"""
 import glob, json, os, signal, sys, threading, time
 sys.path.insert(0, {str(ROOT)!r})
-sys.modules["torch.utils.tensorboard"] = None  # no writers: they import TensorFlow, seconds each
 marker = {str(marker)!r}
 if not os.path.exists(marker):
     def killer():
@@ -136,3 +137,9 @@ sys.exit(main([{str(cfg)!r}, "--device", "cpu"] + sys.argv[1:]))
     assert meta["completed_epochs"] == 2
     assert len(meta["train_epoch_history"]["generator_loss"]) == 2
     assert (runs[0] / "models" / "resnet_gen_best.msgpack").exists()
+    # TensorBoard: one events file a process, the epoch scalars of every epoch once
+    for d in ("train/epoch", "val/epoch"):
+        logs = runs[0] / "logs" / d
+        assert len(event_files(logs)) == 2, d
+        scalars = read_scalars(logs)
+        assert scalars and all(sorted(s for s, _ in v) == [1, 2] for v in scalars.values()), d

@@ -1,7 +1,9 @@
 """The YAML training run of the port against simplesr_tpu's: the same YAML
 dict through ``ConfigUtil.from_yaml`` and ``run_training`` in both
 packages, from the same seeded weights (the JAX generator's, converted),
-and the port's preemption, resume and ``tools.train`` exit codes.
+the TensorBoard scalars of the two runs (tensorboardX's files against the
+port's own, batch scalars at every step), and the port's preemption, resume
+and ``tools.train`` exit codes.
 
 Tolerances: a float32 16-wide, 2-block x4 model trained by SGD for 2
 epochs on bit-equal HR batches (LR within 1e-5): the two packages sum
@@ -13,6 +15,7 @@ SSIM within rel 1e-4.
 import copy
 import os
 import signal
+import sys
 import threading
 from pathlib import Path
 
@@ -29,6 +32,7 @@ from simplesr_tpu_torch.eval import evaluation
 from simplesr_tpu_torch.tools import train as train_tool
 from simplesr_tpu_torch.train import from_flax_variables, run_training, to_flax_variables
 from simplesr_tpu_torch.train import training as training_mod
+from simplesr_tpu_torch.utils.tensorboard import event_files, read_scalars
 
 GALLERY = str(Path(__file__).resolve().parents[1] / "data/corpus/gallery")
 REL, ATOL = 1e-4, 1e-4
@@ -64,15 +68,16 @@ def _load_jax_weights(port_model, jax_model):
 
 def _tree(root):
     """Relative paths of the run's files and directories, without the
-    packages' own checkpoint formats and TensorBoard event files."""
+    packages' own checkpoint formats; a TensorBoard event file counts under
+    its name without the time and host."""
     out = set()
     for dirpath, dirnames, filenames in os.walk(root):
         rel = os.path.relpath(dirpath, root)
         if rel.startswith("checkpoints" + os.sep):
             continue
         out.add(rel)
-        if not rel.startswith("logs"):
-            out.update(os.path.normpath(os.path.join(rel, f)) for f in filenames)
+        out.update(os.path.normpath(os.path.join(
+            rel, "events.out.tfevents" if "tfevents" in f else f)) for f in filenames)
     return out
 
 
@@ -82,6 +87,7 @@ def runs(tmp_path_factory):
     jax_conf, jax_pipe, jax_model = JaxConfigUtil.from_yaml(_yaml_dict(root / "jax"))
     conf, pipe, model = ConfigUtil.from_yaml(_yaml_dict(root / "torch"), device="cpu")
     _load_jax_weights(model, jax_model)
+    jax_model._tb_batch_interval = model._tb_batch_interval = 1  # batch scalars at every step
     jax_result = jax_run_training(jax_conf, jax_pipe, jax_model)
     result = run_training(conf, pipe, model, device="cpu")
     return dict(jax=(jax_conf, jax_pipe, jax_model, jax_result),
@@ -139,6 +145,63 @@ def test_files_match_jax(runs):
         assert f"json_dump/resnet_{name}_history.json" in got
     assert {"models/resnet_gen_best.msgpack", "perf_logfile", "config_logfile"} <= got
     assert os.path.islink(Path(conf.save_path).parent / "latest")
+
+
+LOG_DIRS = ("train/batch", "train/epoch", "val/batch", "val/epoch")
+
+
+def _jax_scalars(jax_conf):
+    """The JAX run's scalars by log directory, its tensorboardX writers
+    flushed first (they write from a thread every two minutes)."""
+    for name in ("epoch_train", "batch_train", "epoch_validation", "batch_validation"):
+        getattr(jax_conf, f"{name}_summary_writer").flush()
+    return {d: read_scalars(Path(jax_conf.save_path) / "logs" / d) for d in LOG_DIRS}
+
+
+def test_tensorboard_scalars_match_jax(runs):
+    jax_conf, jax_model = runs["jax"][0], runs["jax"][2]
+    conf, model = runs["torch"][0], runs["torch"][2]
+    ref = _jax_scalars(jax_conf)
+    for d in LOG_DIRS:
+        jax_files = event_files(Path(jax_conf.save_path) / "logs" / d)
+        files = event_files(Path(conf.save_path) / "logs" / d)
+        assert len(jax_files) == len(files) == 1, d
+        got = read_scalars(files[0])
+        assert sorted(got) == sorted(ref[d]) and got, d
+        for tag in ref[d]:
+            g, r = np.asarray(got[tag]), np.asarray(ref[d][tag])
+            assert g.shape == r.shape, (d, tag)
+            np.testing.assert_array_equal(g[:, 0], r[:, 0], err_msg=f"{d} {tag} steps")
+            np.testing.assert_allclose(g[:, 1], r[:, 1], rtol=REL, err_msg=f"{d} {tag}")
+    # batch scalars at every train step, epoch scalars at epochs 1 and 2
+    steps = {s for values in ref["train/batch"].values() for s, _ in values}
+    assert steps == set(range(1, model.iterations() + 1))
+    assert {s for values in ref["val/epoch"].values() for s, _ in values} == {1, 2}
+    # the epoch scalars are the epoch histories, at float32
+    for d, key in (("train/epoch", "train_epoch"), ("val/epoch", "valid_epoch")):
+        for tag, values in read_scalars(Path(conf.save_path) / "logs" / d).items():
+            history = np.float32([float(v) for v in model.histories()[key][tag]])
+            np.testing.assert_array_equal(np.float32([v for _, v in values]), history, err_msg=tag)
+
+
+def test_tensorboard_loads_the_port_files(runs, monkeypatch):
+    """TensorBoard's own loader reads the port's files: the same scalars
+    (it moves a simple value into a float32 tensor) and the file version."""
+    monkeypatch.setitem(sys.modules, "tensorflow", sys.modules.get("tensorflow"))  # no import
+    from tensorboard.backend.event_processing.event_file_loader import EventFileLoader
+    from tensorboard.util import tensor_util
+
+    conf = runs["torch"][0]
+    for d in LOG_DIRS:
+        (path,) = event_files(Path(conf.save_path) / "logs" / d)
+        events = list(EventFileLoader(str(path)).Load())
+        assert events[0].file_version == "brain.Event:2"
+        loaded = {}
+        for event in events[1:]:
+            for value in event.summary.value:
+                loaded.setdefault(value.tag, []).append(
+                    (event.step, float(tensor_util.make_ndarray(value.tensor))))
+        assert loaded == read_scalars(path), d
 
 
 def test_final_evaluation_matches_jax(runs):
